@@ -8,7 +8,7 @@ the same modules pass every time in a fresh process).  Whatever
 cumulative LLVM/XLA process state triggers it, a subprocess gives the
 module the exact solo configuration that is known good, and bounds the
 blast radius to one failed wrapper test instead of a suite-killing
-SIGSEGV (CLAUDE.md section 3b; VERDICT r3 item 3).
+SIGSEGV (CLAUDE.md, GPU discipline item 3).
 
 Modules isolated this way are named _<name>_impl.py (underscore = not
 collected by the parent run) and invoked by a thin test_<name>.py

@@ -54,7 +54,7 @@ def _check_match(tri, ta, o, d, t_max=None, require_hits=0.05):
         o, d, jnp.asarray(tri[:, 0]), jnp.asarray(tri[:, 1]),
         jnp.asarray(tri[:, 2]), **kw)
     t_g, id_g, u_g, v_g, unresolved = trace_triangles_grid(
-        o, d, ta, chunk=8, return_stats=True, **kw)
+        o, d, ta, return_stats=True, **kw)
     hb = np.isfinite(np.asarray(t_b))
     hg = np.isfinite(np.asarray(t_g))
     assert int(unresolved) == 0
@@ -170,7 +170,7 @@ def test_candidate_cap_starvation_stays_exact(sphere):
         o, d, jnp.asarray(tri[:, 0]), jnp.asarray(tri[:, 1]),
         jnp.asarray(tri[:, 2]))
     t_g, id_g, _, _, unresolved = trace_triangles_grid(
-        o, d, ta, chunk=8, rounds=1, cand_frac=64, return_stats=True)
+        o, d, ta, rounds=1, cand_frac=64, return_stats=True)
     hb = np.isfinite(np.asarray(t_b))
     assert int(unresolved) == 0
     assert hb.mean() > 0.05

@@ -141,7 +141,7 @@ def test_two_phase_extraction_word_capacity():
 
 
 def test_undersized_word_capacity_clean_tail_drop():
-    """Regression (ADVICE r2 item 1): an UNDERSIZED word_capacity must
+    """Regression: an UNDERSIZED word_capacity must
     tail-drop like a capacity overflow — the first `kept` rows valid and
     bit-exact, the rest zero (never cell-0 AABBs emitted as valid), with
     count still the full popcount as the overflow signal."""

@@ -1,5 +1,7 @@
 """Native C++ runtime vs Python/oracle implementations (skipped if the
 toolchain is unavailable)."""
+import os
+
 import numpy as np
 import pytest
 
@@ -68,3 +70,15 @@ def test_native_octree_nodes(seed, n, depth, mi):
     got = vn.build_octree_nodes_native(codes, depth, mi)
     want = build_nodes(codes, depth, mi)
     assert np.array_equal(got, want)
+
+
+def test_library_is_stale_when_missing_or_older_than_source(tmp_path):
+    src, lib = tmp_path / "v.cpp", tmp_path / "v.so"
+    src.write_text("//")
+    assert vn._stale(str(src), str(lib))          # missing
+    lib.write_text("")
+    os.utime(lib, (1_000, 1_000))
+    os.utime(src, (2_000, 2_000))
+    assert vn._stale(str(src), str(lib))          # source is newer
+    os.utime(lib, (3_000, 3_000))
+    assert not vn._stale(str(src), str(lib))

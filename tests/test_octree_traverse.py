@@ -98,8 +98,8 @@ def test_flat_path_matches_descent(setup):
 
 
 def test_coarse_region_map_matches_full(setup):
-    """A COARSE region map (map_bits < bits — the 512^3+ configuration,
-    VERDICT r3 item 9) routes INTERNAL entries through the residual
+    """A COARSE region map (map_bits < bits — the 512^3+ configuration)
+    routes INTERNAL entries through the residual
     child-link chase; results must be identical to the full dense map
     AND the pure while-loop descent."""
     import dataclasses

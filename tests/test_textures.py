@@ -1,8 +1,8 @@
 """Texture subsystem: decoders, mip chain, atlas sampling, UV fidelity.
 
-The round-1 latent bug this pins down: mixed-size textures in one stack
+The latent bug this pins down: mixed-size textures in one stack
 were padded to the max (H, W) and sampled with the padded dims, so every
-smaller texture read into its zero padding (VERDICT weak #5).
+smaller texture read into its zero padding.
 """
 import struct
 
@@ -149,7 +149,7 @@ def mixed_scene(tmp_path):
 
 def test_mixed_size_stack_samples_own_dims(mixed_scene):
     """Smaller texture must sample its own texels, not the padded zeros
-    of the max-size stack (the round-1 UV bug)."""
+    of the max-size stack (the padded-dims UV bug)."""
     scene, small, big = mixed_scene
     meta = np.asarray(scene.tex_meta)
     assert tuple(meta[0, 0, 2:4]) == (4, 4)

@@ -1,8 +1,8 @@
-"""voxelray_tpu — a TPU-native mesh-voxelization + ray-tracing framework.
+"""voxelray_tpu — a mesh-voxelization + ray-tracing framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 MatBayern/Raytracing-Voxilizer-Vulkan-Intresection (a Vulkan
-VK_KHR_ray_tracing voxelizer/renderer, reference mounted at /root/reference):
+VK_KHR_ray_tracing voxelizer/renderer); it runs on an NVIDIA GPU:
 
   OBJ mesh -> triangle/box SAT voxelization -> one of four grid encodings
   (bitmask / dense AABB-struct / append vector / Morton octree) -> AABB
@@ -17,7 +17,8 @@ Layer map (mirrors SURVEY.md section 1):
   render/    L3/L4  camera math, shading, the jitted render pipeline,
                  software rasterizer fallback
   parallel/  --  device mesh / sharding / collectives (the distributed layer
-                 the reference lacks; rays + triangles shard over ICI)
+                 the reference lacks; rays, triangles and grid slabs
+                 shard over the devices)
   utils/     L5  config dataclasses, structured logging, benchmark harness,
                  checkpointing
   native/    --  C++ runtime pieces (fast OBJ parse, CPU oracle voxelizer)

@@ -15,12 +15,12 @@ ranges on the 3-bit octant digit per level.  Exact semantics preserved:
   * nodes are numbered in pre-order with children visited 0..7
     (buildNodeRecursive, octTree.hpp:319-358); INVALID child = 0xFFFFFFFF.
 
-TPU-first differences: Morton encoding is magic-bits on device (no byte
-LUT gathers); the item encode + sort runs ON DEVICE (jax.lax.sort over
+Differences: Morton encoding is magic-bits on device (no byte LUT
+gathers); the item encode + sort runs ON DEVICE (jax.lax.sort over
 (hi, lo) uint32 limb pairs, ops/morton.py:sort_codes_device) whenever a
 non-CPU backend is active — non-hit slots are routed to an all-ones
 sentinel that sorts last, so the voxelize -> sorted-codes pipeline never
-leaves the chip; node construction is a *level-order vectorized* sweep
+leaves the device; node construction is a *level-order vectorized* sweep
 over the sorted code array (one searchsorted batch per level, host side —
 O(nodes), cheap) instead of 512-MiB-stack recursion — then renumbered to
 the reference's pre-order for parity.  On CPU the native C++ sort/build
@@ -50,7 +50,7 @@ INVALID_INDEX = np.uint32(0xFFFFFFFF)
 # | log2 with a 24-bit node id (bit 29 is the flag) — traversal resumes
 # the child-link descent below that node for the remaining
 # bits - map_bits levels (ops/octree_traverse.py), so grids past the
-# dense-map budget (512^3+, VERDICT r3 item 9) keep the flat fast path:
+# dense-map budget (512^3+) keep the flat fast path:
 # one map gather plus at most bits - map_bits chase steps per region.
 LEAF_FLAG = np.int32(1 << 30)
 INTERNAL_FLAG = np.int32(1 << 29)
@@ -357,7 +357,7 @@ class Octree:
         if sort_device is None:
             sort_device = jax.default_backend() != "cpu"
         if sort_device:
-            # device path: encode + lax.sort on chip (non-hits routed to
+            # device path: encode + lax.sort on device (non-hits routed to
             # the all-ones sentinel, which sorts last); only the sorted
             # prefix [:n_items] crosses to the host for node layout
             hi_s, lo_s = _encode_sort_items(hit.reshape(-1),
@@ -393,8 +393,8 @@ class Octree:
         # traversal path).  Trees deeper than REGION_MAP_MAX_BITS get a
         # COARSE map (64 MiB budget) whose INTERNAL entries resume the
         # child-link descent for the residual bits - map_bits levels —
-        # 512^3+ grids stay on the flat path (VERDICT r3 item 9; the
-        # reference supports 21 bits/axis, octTree.hpp:583-585).
+        # 512^3+ grids stay on the flat path (the reference supports
+        # 21 bits/axis, octTree.hpp:583-585).
         region_map = None
         items4 = None
         map_bits = min(bits, REGION_MAP_MAX_BITS)

@@ -1,7 +1,8 @@
 """ctypes bindings for the native runtime (libvoxelnative.so).
 
-Builds on demand with `make` (g++, no external deps); every entry point
-has a pure-Python fallback, so the package works without a toolchain.
+Builds on demand with `make` (g++, no external deps) when the library is
+missing or older than voxelnative.cpp; every entry point has a
+pure-Python fallback, so the package works without a toolchain.
 
   parse_obj_native(path)          fast OBJ positions+faces parse
   voxelize_native(...)            serial oracle voxelizer at native speed
@@ -17,9 +18,33 @@ import subprocess
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC_PATH = os.path.join(_DIR, "voxelnative.cpp")
 _LIB_PATH = os.path.join(_DIR, "libvoxelnative.so")
 _lib = None
 _tried = False
+
+
+def _stale(src=_SRC_PATH, lib=_LIB_PATH) -> bool:
+    """The library is missing or older than its source."""
+    return (not os.path.exists(lib)
+            or os.path.getmtime(src) > os.path.getmtime(lib))
+
+
+def _build() -> bool:
+    """make the library into a private file, then rename it into place:
+    processes importing this module at once never load a half-written
+    library."""
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["make", "-C", _DIR, f"LIB={os.path.basename(tmp)}"],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB_PATH)
+        return True
+    except (OSError, subprocess.SubprocessError):
+        return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():
@@ -27,12 +52,8 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(["make", "-C", _DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
+    if _stale() and not _build():
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:

@@ -1,8 +1,8 @@
-// voxelnative: native runtime pieces around the TPU compute path.
+// voxelnative: native runtime pieces around the device compute path.
 //
 // The reference implements its asset loading and CPU voxelization in C++
-// (tinyobjloader; src/VoxelBuilder.hpp).  The TPU framework keeps the hot
-// compute on-device, but the host-side runtime — OBJ parsing for
+// (tinyobjloader; src/VoxelBuilder.hpp).  This framework keeps the hot
+// compute on the accelerator, but the host-side runtime — OBJ parsing for
 // million-triangle scans, the trusted oracle voxelizer used as the
 // bit-exactness gate, Morton coding and octree node construction — is
 // native here too, exposed through a plain C ABI for ctypes.

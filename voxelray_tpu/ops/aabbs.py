@@ -61,10 +61,9 @@ def extract_aabbs_fixed(occ, origin, *, capacity, dims, voxel_size_static,
     are dropped (callers size capacity from count_occupied or mesh stats).
 
     Two-phase word compaction + rank-fill (the getAabbs analog of the
-    reference's countr_zero word skip, voxelgridBool.cpp:18-52): scatter
-    cost on this TPU is per update LANE (~132M/s in-jit), so the naive
-    per-cell compaction paid one update per GRID CELL (350 ms at 512^3).
-    Phase 1 packs cells into u32 words and compacts the nonzero words
+    reference's countr_zero word skip, voxelgridBool.cpp:18-52): a naive
+    per-cell compaction pays one scatter update per GRID CELL.  Phase 1
+    packs cells into u32 words and compacts the nonzero words
     (n/32 lanes); phase 2 scatters each nonzero byte at its global
     prefix-popcount rank and cummax-forward-fills the output, selecting
     each output row's bit with popcount arithmetic (4*word_capacity
@@ -105,8 +104,8 @@ def extract_aabbs_words(words, origin, *, capacity, dims,
                         stop_after=None):
     """extract_aabbs_fixed taking the PACKED uint32 words directly
     (GridBool's native storage) — skips the unpack->repack round trip
-    through a dense (Z,Y,X) uint8 volume (57 MB materialized in HBM at
-    512^3).  Bit order matches pack_bits: bit idx%32 of word idx/32,
+    through a dense (Z,Y,X) uint8 volume (57 MB materialized in device
+    memory at 512x228x490).  Bit order matches pack_bits: bit idx%32 of word idx/32,
     padding bits beyond the cell count zero."""
     return _extract_from_words(words, origin, capacity=capacity,
                                dims=dims,
@@ -128,15 +127,12 @@ def _extract_from_words(words, origin, *, capacity, dims,
     wcap = min(nw, word_capacity)
     # `count` is the FULL popcount (a reduction, not a prefix sum): it
     # must exceed the placed-row count when a capacity bound drops cells
-    # — that's the caller's overflow signal (ADVICE r2 item 1).  All
-    # RANKS are computed post-compaction instead (see phase 2a): the
-    # compactions preserve ascending (word, byte) order and every
-    # dropped element is all-zero or a tail, so prefix sums over the
-    # COMPACTED populations equal the global prefix ranks — this removed
-    # a full-width 4.2M popcount+cumsum pair, a compacted-rank gather,
-    # and a second 1.2M-lane rank scatter (round-3 stage-C attribution:
-    # every phase sits at the scatter/cumsum lane wall, so fewer lanes
-    # IS the optimization).
+    # — that's the caller's overflow signal.  All RANKS are computed
+    # post-compaction instead (see phase 2a): the compactions preserve
+    # ascending (word, byte) order and every dropped element is all-zero
+    # or a tail, so prefix sums over the COMPACTED populations equal the
+    # global prefix ranks, with no full-width popcount+cumsum pair and no
+    # second rank scatter.
     count = jnp.sum(jax.lax.population_count(words).astype(jnp.int32))
     if stop_after == "pack":                      # profiling attribution
         return jnp.zeros((capacity, 6), jnp.float32), count
@@ -176,17 +172,15 @@ def _extract_from_words(words, origin, *, capacity, dims,
         else jnp.arange(nw, dtype=jnp.int32), mode="drop")
     wlive = cwi < nw
     cwi_c = jnp.minimum(cwi, nw - 1)
-    # ascending-index gather from HBM is cheap (~1-2 ms at 311k on the
-    # round-3 profile) — both paths reuse it rather than carrying values
-    # through a second scatter
+    # an ascending-index gather — both paths reuse it rather than
+    # carrying values through a second scatter
     cw = jnp.where(wlive, words[cwi_c], 0)        # (wcap,) u32
     if stop_after == "p1":                        # profiling attribution
         return (jnp.zeros((capacity, 6), jnp.float32)
                 .at[0, 0].set(cw.sum().astype(jnp.float32)), count)
 
-    # phase 2: RANK-FILL (round-3 rework).  The old byte-compact +
-    # per-bit scatter paid 4*wcap + 8*bcap update lanes at the ~132M
-    # lanes/s scatter wall.  Instead, scatter each nonzero byte's packed
+    # phase 2: RANK-FILL.  A byte-compact + per-bit scatter would pay
+    # 4*wcap + 8*bcap update lanes.  Instead, scatter each nonzero byte's packed
     # (byte_row << 8 | value) at its global prefix-popcount RANK START
     # (4*wcap lanes, the only scatter), then forward-fill with cummax:
     # byte_row strictly ascends with rank, so the running max at output
@@ -257,7 +251,7 @@ def _extract_from_words(words, origin, *, capacity, dims,
     # valid mask to the PLACED cell count gives the same clean tail-drop
     # semantics as a capacity overflow.  `count` is still the full
     # popcount: count > number of valid rows is the caller's overflow
-    # signal for any bound (ADVICE r2 item 1).
+    # signal for any bound.
     valid = pos < jnp.minimum(count, kept)
     return jnp.where(valid[:, None], aabbs, 0.0), count
 

@@ -12,6 +12,7 @@ Moller-Trumbore triangles.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -25,7 +26,9 @@ def make_camera_rays(width: int, height: int, view_inv, proj_inv):
     """Per-pixel rays: origins (H, W, 3), directions (H, W, 3).
 
     Pixel (0, 0) is the top-left launch id; the Y-flipped projection
-    makes +d.y point down exactly as in the Vulkan render.
+    makes +d.y point down exactly as in the Vulkan render.  The products
+    are pinned to full float32 precision (a GPU may otherwise run them
+    in TF32, moving directions by ~1e-3 relative).
     """
     view_inv = jnp.asarray(view_inv, jnp.float32)
     proj_inv = jnp.asarray(proj_inv, jnp.float32)
@@ -33,10 +36,12 @@ def make_camera_rays(width: int, height: int, view_inv, proj_inv):
     py = (jnp.arange(height, dtype=jnp.float32) + 0.5) / height * 2.0 - 1.0
     dx, dy = jnp.meshgrid(px, py)  # (H, W)
     d = jnp.stack([dx, dy, jnp.ones_like(dx), jnp.ones_like(dx)], axis=-1)
-    target = jnp.einsum("ij,hwj->hwi", proj_inv, d)
+    hi = jax.lax.Precision.HIGHEST
+    target = jnp.einsum("ij,hwj->hwi", proj_inv, d, precision=hi)
     tn = target[..., :3]
     tn = tn / jnp.linalg.norm(tn, axis=-1, keepdims=True)
-    direction = jnp.einsum("ij,hwj->hwi", view_inv[:3, :3], tn)
+    direction = jnp.einsum("ij,hwj->hwi", view_inv[:3, :3], tn,
+                           precision=hi)
     origin = view_inv[:3, 3]
     origins = jnp.broadcast_to(origin, direction.shape)
     return origins, direction

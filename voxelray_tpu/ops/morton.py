@@ -2,8 +2,8 @@
 
 The reference interleaves 21 bits per axis into a 64-bit code via three
 256-entry byte LUTs (src/octTree.hpp:21-127, 211-218) and decodes with a
-magic-bits compaction (octTree.hpp:220-238).  On TPU vector units the LUT
-gather would be the slow path, so encoding uses the classic magic-bits
+magic-bits compaction (octTree.hpp:220-238).  On a vector device the LUT
+gathers are extra memory traffic, so encoding uses the classic magic-bits
 *spread* — bit-identical codes, different mechanics.
 
 JAX is configured without x64 by default, so codes are carried as a pair
@@ -91,7 +91,7 @@ def morton_encode3(x, y, z):
 def sort_codes_device(hi, lo):
     """On-device lexicographic sort of (hi, lo) uint32 Morton limb pairs.
 
-    The TPU-native analog of the reference's only parallel sort,
+    The device analog of the reference's only parallel sort,
     std::sort(std::execution::par_unseq) over 64-bit Morton keys
     (octTree.hpp:363-364): jax.lax.sort with both limbs as keys (hi major)
     gives exactly the uint64 ascending order.  Callers routing invalid

@@ -20,9 +20,9 @@ pure iteration).  Descent uses the Morton bit structure: the octant of a
 cell at level L is bit-sliced from its (x, y, z), exactly the digit order
 buildNodeRecursive splits on (octTree.hpp:337-345).
 
-This is the semantic/capability path; the production-speed path on TPU is
-the brick accel (ops/traverse_fast.py), which is the same idea fixed at
-two levels with VMEM-resident tables.
+This is the semantic/capability path; the production-speed path is the
+brick accel (ops/traverse_fast.py), which is the same idea fixed at
+three bitmask levels.
 """
 from __future__ import annotations
 
@@ -207,13 +207,13 @@ def _trace_octree_flat_impl(o, d, region_map, children, node_start,
     per-cell region map (models/octree.py build_region_map), and the
     traversal runs as STATIC unrolled rounds — `steps` free-space skips
     then one leaf item test per round — instead of gathers inside a
-    while_loop body (~40x slower on this TPU, the round-2 profile).
+    while_loop body.
     When the map is COARSE (map_bits < bits, e.g. 512^3 grids past the
     dense-map budget), INTERNAL map entries resume the child-link
     descent for the residual bits - map_bits levels — a short static
     chase, not a full-depth one.  Stragglers drain through a compacted
-    two-level while loop exactly like ops/traverse_fast: zero
-    iterations when the static rounds already resolved every ray.
+    two-level while loop: zero iterations when the static rounds
+    already resolved every ray.
     """
     nx, ny_, _nz = dims
     vs = jnp.float32(voxel_size)
@@ -385,7 +385,7 @@ def _trace_octree_flat_impl(o, d, region_map, children, node_start,
             o, d, inv, t_exit, t_min, tmx_b, None, t_cur, alive, holding,
             hold_node, hold_texit, best_t, best_lin)
 
-    # ---- compacted straggler drain (see ops/traverse_fast.py) ----------
+    # ---- compacted straggler drain --------------------------------------
     cap_d = min(max(8192, -(-n // drain_frac) // 1024 * 1024 + 1024), n)
     outer_cap = -(-n // cap_d) + 1
 

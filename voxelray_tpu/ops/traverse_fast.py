@@ -1,46 +1,15 @@
-"""Accelerated grid traversal: Pallas brick walk + fused in-brick DDA.
+"""Brick-accelerated grid traversal: the production voxel trace.
 
-Pipeline per ray batch (trace_grid_fast):
+The acceleration structure (BrickAccel) is built once per grid: the
+occupancy grouped into 8^3-cell bricks, with a bitmask over superbricks
+of 8^3 bricks (l2), a bitmask over bricks (coarse) and each brick's 512
+cell bits (fine, brick-major).  trace_grid_fast walks it with the
+brick_dda kernel (ops/pallas/brick_dda.py) and returns the same
+(t, cell_lin) contract, and the same hits, as ops.traverse.trace_grid_dda.
 
-  1. init: clip rays to the grid bounds, seed the brick-level DDA state
-  2. rounds (static python loop under jit): the Pallas coarse_walk finds
-     each resident ray's next K occupied 8^3 bricks (VMEM mux-gather
-     DDA).  Rays that found at least one candidate brick are
-     cumsum-compacted into a buffer of N/fine_frac capacity; ONE HBM
-     gather pulls
-     all K bricks' occupancy words for the compacted rays, and ONE fused
-     Pallas kernel (brick_fine.fine_walk_multi) resolves the K candidates
-     in ray order.  Rays that overflow the fine buffer rewind their walk
-     state to their first candidate brick and retry next round — never
-     dropped, never wrong, just late.  Straggler rays are compacted into
-     n/4 then n/16 resident buffers for later rounds.
-  3. output (t, cell_lin) — the same contract (and bit-parity class) as
-     ops.traverse.trace_grid_dda.
-
-Round-1 measurement that forced this shape: only ~12% of 1080p rays have
-any candidate brick after the coarse walk, yet the old per-slot fine
-stage gathered + walked all N rays x 4 slots — compaction plus slot
-fusion removes ~90% of the fine-stage HBM traffic (the bench floor).
-
-Round-2 measurement that set the defaults: marginal ROUNDS, not queue
-depth, dominate cost (120-200 ms per straggler round at 512^3 vs ~25 ms
-per extra k-slot), so the default moved from k_hits=4 x rounds=6 to
-k_hits=8 x rounds=3 with fine_frac=8 — identical 24-occupied-brick
-coverage (bit-identical hits on the full-preset scene, 670 -> 371 ms).
-Coverage bound: a ray that crosses more than k_hits*rounds occupied
-bricks without an accepted cell returns miss; the dda backend is the
-exhaustive reference (on the 1M-tri full preset it finds 41 more hits
-out of 210k — tangent rays skimming the shell; unchanged from the old
-default, which had the same 24-brick bound).
-
-An optional `admit` mask starts only selected rays (shadow rays exist
-only for lit, facing pixels) with a compacted round-1 resident buffer —
-the pipeline-level shadow compaction of VERDICT item 7.
-
-The accel structure (BrickAccel) is precomputed once per grid: pad dims
-to multiples of 8, brick-occupancy words in the (ROWS, 128) layout the
-kernel muxes over, and per-brick packed fine words stored word-major
-(16, NB) so the fine-stage gather is one compact take(axis=1).
+A Z-slab accel (build_accel_slab) keeps the full grid's coordinates and
+bitmasks but only its own slab's fine words: the Z-slab-sharded render
+(parallel/comm.py) runs the same kernel against it.
 """
 from __future__ import annotations
 
@@ -52,9 +21,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .compact import compact_mask
 from .intersect import TMAX, TMIN
-from .pallas.grid_walk import LANES, coarse_walk, coarse_walk_init
+from .pallas.brick_dda import brick_dda, use_interpreter
+from .traverse import _dda_final_t
 
 __all__ = ["BrickAccel", "build_accel", "build_accel_slab",
            "trace_grid_fast", "any_hit_grid_fast"]
@@ -65,1045 +34,131 @@ BRICK = 8
 @jax.tree_util.register_dataclass
 @dataclass(frozen=True)
 class BrickAccel:
-    coarse: Any                     # uint32[ROWS, 128] brick bitmask
-    fine: Any                       # uint32[16, NB] per-brick cell bits
-                                    # (transposed: row k = word k of every
-                                    # brick — compact TPU layout for the
-                                    # per-column gathers in the fine stage)
-    l2: Any                         # uint32[SROWS, 128] superbrick (8^3
-                                    # bricks) bitmask for the two-level
-                                    # walk
+    coarse: Any                     # uint32[ceil(NB/32)] brick bitmask
+    fine: Any                       # uint32[NBs, 16] cell bits per brick
+    l2: Any                         # uint32[ceil(NS/32)] superbrick bitmask
     origin: Any                     # float32[3]
     dims: tuple = field(metadata=dict(static=True))     # voxel dims X,Y,Z
     bdims: tuple = field(metadata=dict(static=True))    # brick dims
     voxel_size: float = field(metadata=dict(static=True))
     origin_key: tuple = field(metadata=dict(static=True))
-    # Z-slab sharding (build_accel_slab): fine covers only brick lins
-    # [fine_off, fine_off + fine.shape[1]) — a z-slab of bricks is a
-    # CONTIGUOUS brick-lin block (lin = x + bx*(y + by*z)), so the big
-    # per-cell table shards by slab while coarse/l2 (tiny) stay full
-    # and every coordinate expression stays global and bit-identical.
-    # DATA (traced) field, not static: under shard_map every device
-    # runs one program with its own offset value.
+    # first brick (x + bx*(y + by*z) order) of `fine`: 0 for a whole-grid
+    # accel; a Z-slab is a contiguous brick block, so a slab accel stores
+    # only its own fine rows.  Traced, so every device of a shard_map runs
+    # one program with its own offset.
     fine_off: Any = 0
-    # superbrick-major fine tile table (n_sb, 64, 128) for the one-
-    # dispatch megakernel (ops/pallas/mega_trace.py); None on slab
-    # accels (the zslab path keeps the staged backend).
-    fine_sb: Any = None
+
+
+def _pack_bits(bits):
+    """bool (..., 32k) -> uint32 (..., k), bit i of word w = element 32w+i."""
+    words = bits.astype(jnp.uint32).reshape(bits.shape[:-1] + (-1, 32))
+    return (words << jnp.arange(32, dtype=jnp.uint32)).sum(
+        axis=-1, dtype=jnp.uint32)
+
+
+def _pack_flat(bits):
+    """bool (n,) -> uint32 (ceil(n/32),)."""
+    return _pack_bits(jnp.pad(bits, (0, -bits.shape[0] % 32)))
 
 
 def build_accel(occ, origin, voxel_size) -> BrickAccel:
     """occ (Z, Y, X) uint8 -> BrickAccel (device arrays)."""
     occ = jnp.asarray(occ)
-    nz, ny, nx = occ.shape
-    bx, by, bz = -(-nx // BRICK), -(-ny // BRICK), -(-nz // BRICK)
-    pz, py, px = bz * BRICK - nz, by * BRICK - ny, bx * BRICK - nx
-    occp = jnp.pad(occ, ((0, pz), (0, py), (0, px)))
-    # (bz, 8, by, 8, bx, 8) -> brick-major (bz, by, bx, 8z, 8y, 8x)
-    blocks = occp.reshape(bz, BRICK, by, BRICK, bx, BRICK) \
-        .transpose(0, 2, 4, 1, 3, 5)
-    # brick occupancy bitmask in x-fastest linear order
-    bocc = (blocks.reshape(bz, by, bx, -1).max(axis=-1) > 0)
-    n_bricks = bx * by * bz
-    n_words = -(-n_bricks // 32)
-    rows = max(1, -(-n_words // LANES))
-    flat = jnp.zeros((rows * LANES * 32,), jnp.uint32) \
-        .at[: n_bricks].set(bocc.transpose(0, 1, 2).reshape(-1)
-                            .astype(jnp.uint32))
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    words = (flat.reshape(-1, 32) << shifts).sum(axis=1, dtype=jnp.uint32)
-    coarse = words.reshape(rows, LANES)
-
-    # fine words: per brick, 512 cell bits packed x-fastest into 16 words,
-    # stored transposed (16, NB)
-    cell_bits = blocks.reshape(n_bricks, BRICK * BRICK * BRICK) \
-        .astype(jnp.uint32)
-    fine = (cell_bits.reshape(n_bricks, 16, 32) << shifts).sum(
-        axis=-1, dtype=jnp.uint32).transpose(1, 0)
-
-    # L2 superbrick bitmask (8^3 bricks per superbrick): lets the coarse
-    # walk skip empty space with a 1-row mux instead of the wide L1 mux
-    sbx, sby, sbz = -(-bx // 8), -(-by // 8), -(-bz // 8)
-    spz, spy, spx = sbz * 8 - bz, sby * 8 - by, sbx * 8 - bx
-    boccp = jnp.pad(bocc, ((0, spz), (0, spy), (0, spx)))
-    socc = boccp.reshape(sbz, 8, sby, 8, sbx, 8).transpose(0, 2, 4, 1, 3, 5) \
-        .reshape(sbz, sby, sbx, -1).max(axis=-1)
-    n_sup = sbx * sby * sbz
-    s_words = -(-n_sup // 32)
-    s_rows = max(1, -(-s_words // LANES))
-    sflat = jnp.zeros((s_rows * LANES * 32,), jnp.uint32) \
-        .at[: n_sup].set(socc.reshape(-1).astype(jnp.uint32))
-    l2 = (sflat.reshape(-1, 32) << shifts).sum(axis=1, dtype=jnp.uint32) \
-        .reshape(s_rows, LANES)
-
-    from .pallas.mega_trace import build_fine_sb
-    fine_sb = build_fine_sb(fine, (bx, by, bz))
-
-    origin = np.asarray(origin, np.float32)
-    return BrickAccel(
-        coarse=coarse, fine=fine, l2=l2, origin=jnp.asarray(origin),
-        dims=(nx, ny, nz), bdims=(bx, by, bz),
-        voxel_size=float(voxel_size),
-        origin_key=(float(origin[0]), float(origin[1]), float(origin[2])),
-        fine_sb=fine_sb,
-    )
+    return build_accel_slab(occ, 0, occ.shape[0], origin, voxel_size)
 
 
 def build_accel_slab(occ_slab, z0, full_nz, origin, voxel_size) \
         -> BrickAccel:
-    """BrickAccel for a Z-SLAB of a larger grid (>HBM sharding).
+    """BrickAccel for a Z-slab of a larger grid.
 
     occ_slab: (nzs, ny, nx) uint8 — global z rows [z0, z0 + nzs), z0 a
-    multiple of 8.  The accel's dims/bdims/origin are the FULL grid's
-    (every coordinate expression stays global and bit-identical to the
-    monolithic build_accel), coarse/l2 bitmasks are full-size but tiny
-    (bits only in the slab), and the big per-brick fine table holds
-    only the slab's contiguous brick-lin block (fine_off).  The walk
-    never produces candidates outside the slab (their coarse bits are
-    0), so traversal against this accel returns the monolithic trace
-    restricted to cells in the slab — the per-slab query the zslab
-    render merges with pmin (reference VRAM-residency bound beaten:
-    hello_vulkan.cpp:709-715).
+    multiple of 8.  dims/bdims/origin are the FULL grid's, so every
+    coordinate expression stays global and bit-identical to the whole
+    grid's accel; the bitmasks are full-size but hold bits only in the
+    slab, and `fine` holds only the slab's bricks (from fine_off on).
+    The walk never enters a brick outside the slab, so a trace against
+    this accel is the whole-grid trace restricted to the slab's cells —
+    the per-slab query the Z-slab render merges with pmin.
     """
     assert z0 % BRICK == 0, "slab boundaries must be brick-aligned"
     occ_slab = jnp.asarray(occ_slab)
     nzs, ny, nx = occ_slab.shape
-    nz = full_nz
-    bx, by, bz = -(-nx // BRICK), -(-ny // BRICK), -(-nz // BRICK)
-    z0b = z0 // BRICK
-    bzs = -(-nzs // BRICK)
-    pz = bzs * BRICK - nzs
-    py, px = by * BRICK - ny, bx * BRICK - nx
-    occp = jnp.pad(occ_slab, ((0, pz), (0, py), (0, px)))
+    bx, by, bz = -(-nx // BRICK), -(-ny // BRICK), -(-full_nz // BRICK)
+    z0b, bzs = z0 // BRICK, -(-nzs // BRICK)
+    occp = jnp.pad(occ_slab, ((0, bzs * BRICK - nzs), (0, by * BRICK - ny),
+                              (0, bx * BRICK - nx)))
+    # (bzs, 8, by, 8, bx, 8) -> brick-major (bzs, by, bx, 8z, 8y, 8x)
     blocks = occp.reshape(bzs, BRICK, by, BRICK, bx, BRICK) \
-        .transpose(0, 2, 4, 1, 3, 5)
-    bocc_s = (blocks.reshape(bzs, by, bx, -1).max(axis=-1) > 0)
-    n_bricks = bx * by * bz
-    nb_slab = bx * by * bzs
-    fine_off = bx * by * z0b
-    shifts = jnp.arange(32, dtype=jnp.uint32)
+        .transpose(0, 2, 4, 1, 3, 5).reshape(bzs, by, bx, -1) > 0
+    fine = _pack_bits(blocks).reshape(-1, 16)
 
-    n_words = -(-n_bricks // 32)
-    rows = max(1, -(-n_words // LANES))
-    # the LAST slab may extend past the true grid (caller pads nzs to a
-    # multiple of the slab size) — those bricks are empty by
-    # construction, so trim the placement to the real brick range
-    place = max(0, min(nb_slab, n_bricks - fine_off))
-    flat = jnp.zeros((rows * LANES * 32,), jnp.uint32) \
-        .at[fine_off: fine_off + place].set(
-            bocc_s.reshape(-1)[:place].astype(jnp.uint32))
-    coarse = (flat.reshape(-1, 32) << shifts).sum(axis=1,
-                                                  dtype=jnp.uint32) \
-        .reshape(rows, LANES)
-
-    cell_bits = blocks.reshape(nb_slab, BRICK * BRICK * BRICK) \
-        .astype(jnp.uint32)
-    fine = (cell_bits.reshape(nb_slab, 16, 32) << shifts).sum(
-        axis=-1, dtype=jnp.uint32).transpose(1, 0)
-
+    # the last slab may extend past the grid (callers pad the slab
+    # height); those bricks are empty by construction
+    keep = max(0, min(bzs, bz - z0b))
     sbx, sby, sbz = -(-bx // 8), -(-by // 8), -(-bz // 8)
-    zsl = max(0, min(bzs, sbz * 8 - z0b))
-    bocc_full = jnp.zeros((sbz * 8, sby * 8, sbx * 8), bool) \
-        .at[z0b: z0b + zsl, :by, :bx].set(bocc_s[:zsl])
-    socc = bocc_full.reshape(sbz, 8, sby, 8, sbx, 8) \
-        .transpose(0, 2, 4, 1, 3, 5).reshape(sbz, sby, sbx, -1) \
-        .max(axis=-1)
-    n_sup = sbx * sby * sbz
-    s_words = -(-n_sup // 32)
-    s_rows = max(1, -(-s_words // LANES))
-    sflat = jnp.zeros((s_rows * LANES * 32,), jnp.uint32) \
-        .at[: n_sup].set(socc.reshape(-1).astype(jnp.uint32))
-    l2 = (sflat.reshape(-1, 32) << shifts).sum(axis=1, dtype=jnp.uint32) \
-        .reshape(s_rows, LANES)
+    bocc = jnp.zeros((sbz * 8, sby * 8, sbx * 8), bool) \
+        .at[z0b:z0b + keep, :by, :bx].set(blocks[:keep].any(axis=-1))
+    coarse = _pack_flat(bocc[:bz, :by, :bx].reshape(-1))
+    socc = bocc.reshape(sbz, 8, sby, 8, sbx, 8).any(axis=(1, 3, 5))
+    l2 = _pack_flat(socc.reshape(-1))
 
     origin = np.asarray(origin, np.float32)
     return BrickAccel(
         coarse=coarse, fine=fine, l2=l2, origin=jnp.asarray(origin),
-        dims=(nx, ny, nz), bdims=(bx, by, bz),
+        dims=(nx, ny, full_nz), bdims=(bx, by, bz),
         voxel_size=float(voxel_size),
-        origin_key=(float(origin[0]), float(origin[1]), float(origin[2])),
-        fine_off=jnp.int32(fine_off),
+        origin_key=tuple(float(c) for c in origin),
+        fine_off=jnp.int32(bx * by * z0b),
     )
 
 
-def _take_fine(accel, bl):
-    """Gather per-brick fine words; slab accels offset into their
-    fine-table window (clamp keeps dead/-1 lanes in range — their
-    results are masked; monolithic accels have fine_off == 0 and the
-    clip is the same bound the gather already respected)."""
-    bl = jnp.clip(bl - accel.fine_off, 0, accel.fine.shape[1] - 1)
-    return jnp.take(accel.fine, bl, axis=1)
-
-
-def _init_state(o, d, accel, t_max, t_min=None):
-    """Entry brick + active mask for each ray (mirrors the DDA init).
-
-    t_min (per-ray, optional) additionally fast-forwards the START of the
-    walk to the cell containing o + d*t_min: any cell wholly before that
-    point has slab t0 < t_min and the fine accept (t0 >= t_min) would
-    reject it anyway, so skipping it is free — and the tri-grid marcher
-    (ops/tri_accel.py) depends on it to make forward progress instead of
-    re-walking from the grid entry each march round.  Shares the +1e-7
-    start slop (and its ulp-edge class) with the t=0 clamp the dda
-    reference also applies."""
-    bx, by, bz = accel.bdims
-    bw = jnp.float32(accel.voxel_size * BRICK)
-    origin = accel.origin
-    gmax = origin + jnp.asarray([bx, by, bz], jnp.float32) * bw
-    inv = 1.0 / d
-    tbot = inv * (origin - o)
-    ttop = inv * (gmax - o)
-    tn = jnp.minimum(tbot, ttop)
-    tf = jnp.maximum(tbot, ttop)
-    t_enter = jnp.maximum(jnp.maximum(tn[:, 0], tn[:, 1]), tn[:, 2])
-    t_exit = jnp.minimum(jnp.minimum(tf[:, 0], tf[:, 1]), tf[:, 2])
-    lo = jnp.maximum(t_enter, 0.0)
-    if t_min is not None:
-        lo = jnp.maximum(lo, t_min)
-    t_start = lo + 1e-7
-    ok = (t_exit > jnp.maximum(t_enter, 0.0)) & (t_start <= t_max) \
-        & (t_start <= t_exit + 1e-7)
-    p = o + d * t_start[:, None]
-    cell = jnp.clip(jnp.floor((p - origin) / bw).astype(jnp.int32), 0,
-                    jnp.asarray([bx - 1, by - 1, bz - 1], jnp.int32))
-    return cell[:, 0], cell[:, 1], cell[:, 2], ok
-
-
-def _fine_resolve(o, d, brick_lin, accel, t_min, t_max, chunk=32768):
-    """Dense 512-cell slab resolve inside each ray's hit brick, chunked
-    over rays to bound the (chunk, 512) intermediates.
-
-    Semantic reference implementation for the Pallas fine walk (kept as
-    fine="dense"; tests pin parity).  Returns (t, cell_lin) with
-    t = +inf where no accepted cell.
-    """
-    n = o.shape[0]
-    t_min = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), (n,))
-    if n > chunk:
-        # python-loop chunking (straight-line under jit): gathers inside
-        # lax.map/scan bodies are ~40x slower on this TPU
-        n_chunks = -(-n // chunk)
-        pad = n_chunks * chunk - n
-
-        def prep(x):
-            cfg = [(0, pad)] + [(0, 0)] * (x.ndim - 1)
-            return jnp.pad(x, cfg).reshape((n_chunks, chunk) + x.shape[1:])
-
-        po, pd, pb, pt = prep(o), prep(d), prep(brick_lin), prep(t_max)
-        pn = prep(t_min)
-        ts, lins = [], []
-        for c in range(n_chunks):
-            t, lin = _fine_resolve_block(po[c], pd[c], pb[c], pt[c],
-                                         accel, pn[c])
-            ts.append(t)
-            lins.append(lin)
-        return (jnp.concatenate(ts)[:n], jnp.concatenate(lins)[:n])
-    return _fine_resolve_block(o, d, brick_lin, t_max, accel, t_min)
-
-
-def _fine_resolve_block(o, d, brick_lin, t_max, accel, t_min):
-    nx, ny, nz = accel.dims
-    bx, by, _bz = accel.bdims
-    vs = jnp.float32(accel.voxel_size)
-    origin = accel.origin
-    half = jnp.float32(0.5) * vs
-
-    has = brick_lin >= 0
-    bl = jnp.maximum(brick_lin, 0)
-    # one gather along axis 1 -> (16, N), then word-major use
-    words = _take_fine(accel, bl).transpose(1, 0)  # (N, 16)
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    bits = ((words[:, :, None] >> shifts) & 1).astype(bool)  # (N, 16, 32)
-    bits = bits.reshape(-1, 512)
-
-    # brick -> base cell coords
-    bcx = bl % bx
-    bcy = (bl // bx) % by
-    bcz = bl // (bx * by)
-    k = jnp.arange(512, dtype=jnp.int32)
-    lx = k % BRICK
-    ly = (k // BRICK) % BRICK
-    lz = k // (BRICK * BRICK)
-    cx = bcx[:, None] * BRICK + lx[None, :]      # (N, 512)
-    cy = bcy[:, None] * BRICK + ly[None, :]
-    cz = bcz[:, None] * BRICK + lz[None, :]
-    in_dims = (cx < nx) & (cy < ny) & (cz < nz)
-
-    # reference cell AABB + slab test (raytrace.rint:46-56)
-    ccx = origin[0] + (cx.astype(jnp.float32) + 0.5) * vs
-    ccy = origin[1] + (cy.astype(jnp.float32) + 0.5) * vs
-    ccz = origin[2] + (cz.astype(jnp.float32) + 0.5) * vs
-    inv = 1.0 / d                                 # (N, 3)
-    t0 = jnp.full(bits.shape, -jnp.inf, jnp.float32)
-    t1 = jnp.full(bits.shape, jnp.inf, jnp.float32)
-    for cc, oo, ii in ((ccx, o[:, 0:1], inv[:, 0:1]),
-                       (ccy, o[:, 1:2], inv[:, 1:2]),
-                       (ccz, o[:, 2:3], inv[:, 2:3])):
-        tb = ii * ((cc - half) - oo)
-        tt = ii * ((cc + half) - oo)
-        t0 = jnp.maximum(t0, jnp.minimum(tb, tt))
-        t1 = jnp.minimum(t1, jnp.maximum(tb, tt))
-    accept = (t1 > jnp.maximum(t0, 0.0)) & (t0 > 0.0) \
-        & (t0 >= t_min[:, None]) & (t0 <= t_max[:, None]) \
-        & bits & in_dims & has[:, None]
-    t0m = jnp.where(accept, t0, jnp.inf)
-    arg = jnp.argmin(t0m, axis=1)
-    tbest = jnp.take_along_axis(t0m, arg[:, None], axis=1)[:, 0]
-    lin = jnp.take_along_axis(
-        cx + nx * (cy + ny * cz), arg[:, None], axis=1)[:, 0]
-    lin = jnp.where(jnp.isfinite(tbest), lin, -1)
-    return tbest, lin
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("accel_static", "rounds", "chunk", "fine", "k_hits",
-                     "fine_frac", "admit_frac", "two_level",
-                     "resident_frac", "drain", "drain_frac", "drain_k",
-                     "fine_unroll", "resident_groups", "self_admit"),
-)
-def _trace_fast_impl(o, d, accel, t_min, t_max, admit, *, accel_static,
-                     rounds, chunk, fine="walk", k_hits=4, fine_frac=4,
-                     admit_frac=4, two_level=None, resident_frac=4,
-                     drain=True, drain_frac=64, drain_k=8,
-                     fine_unroll=13, resident_groups=None,
-                     self_admit=False):
-    n = o.shape[0]
-    # FUSED-INIT fast path (round-5): full-width round 1 with no admit
-    # mask computes the bbox clip + entry cell INSIDE the walk kernel
-    # (coarse_walk_init) — the separate init program and its 4
-    # full-width state arrays disappear from the frame.  Compacted
-    # round-1 paths (admit/self_admit) still need the init state at
-    # full width to compact, so they keep the XLA stage.
-    fused1 = admit is None and not self_admit
-    if fused1:
-        cx = cy = cz = jnp.zeros((n,), jnp.int32)   # dummy: round 1
-        active = jnp.ones((n,), bool)               # writes real state
-    else:
-        cx, cy, cz, active = _init_state(
-            o, d, accel, t_max,
-            t_min if getattr(t_min, 'ndim', 0) else None)
-    if admit is not None:
-        active = active & admit
-    elif self_admit:
-        # round-1 compaction on the init mask itself (round-4): at the
-        # bench viewpoints only ~20% of 1080p rays even enter the grid
-        # bbox, yet round 1 walks full width.  Treating the bbox-clip
-        # survivors as an admit set shrinks the round-1 resident domain
-        # to n/admit_frac with IDENTICAL results: admit == active is a
-        # no-op on the math, and viewpoints denser than 1/admit_frac
-        # overflow into later rounds/the drain (never dropped, never
-        # wrong — the standard resident-overflow contract).
-        admit = active
-    best_t = jnp.full((n,), jnp.inf, jnp.float32)
-    best_lin = jnp.full((n,), -1, jnp.int32)
-    # PACKED ray/state rows.  Profiled on chip (round 2): HBM gathers
-    # cost per-INDEX (~33M scalar gathers/s — a 524k-index 1-D gather is
-    # 12-16 ms) while wide rows amortize (the 16-wide fine-words gather
-    # runs ~90M idx/s).  Packing the 7 per-ray constants into one (n, 8)
-    # f32 row and the 4 walk-state words into one (n, 4) i32 row turns
-    # the ~11 scalar gathers per straggler round into two row gathers.
-    oxa, oya, oza = o[:, 0], o[:, 1], o[:, 2]
-    dxa, dya, dza = d[:, 0], d[:, 1], d[:, 2]
-    # col 7 carries per-ray t_min (scalar t_min broadcasts) so compacted
-    # rounds can gather it with the other ray constants — the triangle
-    # -grid marcher advances t_min per ray between traces
-    t_min_b = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), (n,))
-    rays8 = jnp.stack([oxa, oya, oza, dxa, dya, dza, t_max,
-                       t_min_b], axis=1)
-    act_i = active.astype(jnp.int32)
-
-    bdims, origin_key, vs, accel_static_dims = accel_static
-    bx, by, _bz = bdims
-    bw = float(vs * BRICK)
-    per_block = chunk * LANES
-
-    def cap_up(c):
-        """Round a capacity up to whole kernel blocks."""
-        return max(per_block, -(-c // per_block) * per_block)
-
-    # Rounds as a STATIC python loop (unrolled straight-line code under
-    # jit).  Measured hard lesson: HBM gathers inside lax.while/scan
-    # bodies run ~40x slower on this TPU than the same gathers in
-    # straight-line code, so a data-dependent early-exit rounds loop is a
-    # net catastrophe.
-
-    # two-level walk: auto-on for wide L1 tables.  The fused per-lane
-    # two-speed kernel with the monotone undershoot landing is
-    # bit-identical to the single-level walk on chip (210114/210114 on
-    # the full preset) and measured faster there (437.8 vs 448.3 ms
-    # trace, 472.6 vs 495.4 ms shadow); narrow tables (small grids)
-    # don't benefit, so rows <= 4 stays single-level.
-    use_l2 = (accel.coarse.shape[0] > 4 if two_level is None
-              else bool(two_level))
-
-    # per-round candidate-queue depths: a plain int k_hits applies to
-    # every round; a tuple gives round r depth k_list[r] (the shadow
-    # path runs a deep first round and a shallow wide capacity round —
-    # the wide round's ff1 fine gather prices per k x cap whether lanes
-    # are alive or not)
-    k_list = (tuple(k_hits) if isinstance(k_hits, (tuple, list))
-              else (k_hits,) * rounds)
-    assert len(k_list) >= rounds
-    # fine_frac may also vary per round: the shadow path runs ff=2 in
-    # round 1 (its overflow rewinds into round 2's capacity) but MUST
-    # run ff=1 in the final round — last-round fine overflow has no
-    # retry and would silently drop results
-    ff_list = (tuple(fine_frac) if isinstance(fine_frac, (tuple, list))
-               else (fine_frac,) * rounds)
-    assert len(ff_list) >= rounds
-    # WITHOUT the drain, the FINAL round's fine buffer must be
-    # full-width: last-round fine overflow has no retry round to rewind
-    # into, so any ff > 1 there silently drops hits on dense-candidate
-    # scenes (camera inside geometry) — ADVICE r2 item 2.  WITH the
-    # drain, overflow rays rewind to their first candidate brick, stay
-    # active, and the drain serves them exactly — so the caller's ff
-    # stands and the final round's fine-words gather stays compacted
-    # (k x n/ff instead of k x n indices).
-    if not drain:
-        ff_list = ff_list[: rounds - 1] + (1,) + ff_list[rounds:]
-
-    def one_round(ox, oy, oz, dx, dy, dz, rcx, rcy, rcz, act, tmn, tmx,
-                  fine_frac=fine_frac, k_hits=0, walk_init=False):
-        m = ox.shape[0]
-        if walk_init:
-            # round-1 fused init: entry state computed in-kernel
-            hits, ncx, ncy, ncz, cont = coarse_walk_init(
-                ox, oy, oz, dx, dy, dz, tmn, tmx, accel.coarse,
-                accel.l2 if use_l2 else None,
-                bdims=bdims, origin_key=origin_key, brick_world=bw,
-                bq=chunk, k_hits=k_hits)
-        else:
-            hits, ncx, ncy, ncz, cont = coarse_walk(
-                ox, oy, oz, dx, dy, dz, rcx, rcy, rcz,
-                act.astype(jnp.int32), tmx, accel.coarse,
-                accel.l2 if use_l2 else None,
-                bdims=bdims, origin_key=origin_key, brick_world=bw,
-                bq=chunk, k_hits=k_hits)
-
-        if fine == "dense":
-            # reference path: per-slot dense 512-cell resolve, no
-            # compaction
-            t = jnp.full((m,), jnp.inf, jnp.float32)
-            lin = jnp.full((m,), -1, jnp.int32)
-            for s in range(k_hits):
-                hit_s = jnp.where(jnp.isfinite(t), -1, hits[s])
-                t_s, lin_s = _fine_resolve(
-                    jnp.stack([ox, oy, oz], axis=-1),
-                    jnp.stack([dx, dy, dz], axis=-1), hit_s, accel,
-                    tmn, tmx)
-                got = jnp.isfinite(t_s) & ~jnp.isfinite(t)
-                t = jnp.where(got, t_s, t)
-                lin = jnp.where(got, lin_s, lin)
-            return t, lin, ncx, ncy, ncz, cont
-
-        if fine == "walk1":
-            # round-1 structure: per-slot gather + fine kernel over ALL
-            # m rays, no candidate compaction (A/B reference for the
-            # fused path)
-            from .pallas.brick_fine import fine_walk
-            t = jnp.full((m,), jnp.inf, jnp.float32)
-            lin = jnp.full((m,), -1, jnp.int32)
-            for s in range(k_hits):
-                hit_s = jnp.where(jnp.isfinite(t), -1, hits[s])
-                bl = jnp.maximum(hit_s, 0)
-                words = _take_fine(accel, bl)
-                t_s, lin_s = fine_walk(
-                    ox, oy, oz, dx, dy, dz, hit_s, words, tmn, tmx,
-                    dims=accel_static_dims, bdims=bdims,
-                    origin_key=origin_key, voxel_size=vs, bq=chunk)
-                got = jnp.isfinite(t_s) & ~jnp.isfinite(t)
-                t = jnp.where(got, t_s, t)
-                lin = jnp.where(got, lin_s, lin)
-            return t, lin, ncx, ncy, ncz, cont
-
-        from .pallas.brick_fine import fine_walk_multi
-
-        has = hits[0] >= 0
-        fcap = cap_up(-(-m // fine_frac)) if fine_frac > 1 else m
-        G = 8
-        if fcap < m and m % G == 0:
-            # GROUP compaction (round-3 stage-F finding: the base trace
-            # cost is dominated by full-width glue, and the per-ray
-            # candidate compaction alone prices an m-lane scatter
-            # ~13 ms at 2.07M rays).  Tiled rays are spatially coherent,
-            # so candidates cluster: compacting GROUPS of 8 consecutive
-            # rays cuts the compaction scatter to m/8 lanes and turns
-            # the per-ray constant gather into 64-wide group rows
-            # (row gathers amortize with width, CLAUDE.md #8).  Rays
-            # without a candidate inside a kept group carry brick -1
-            # through the fine kernel (immediate miss) — the ~12%
-            # candidate density makes the padding cheap against the
-            # glue it removes.
-            ng = m // G
-            gcap = fcap // G
-            has_g = has.reshape(ng, G).any(axis=1)
-            gsel, glive, gsel_c, gpos = compact_mask(has_g, gcap, ng)
-            ovf = (has.reshape(ng, G)
-                   & (gpos >= gcap)[:, None]).reshape(-1)
-            lane = jnp.arange(G, dtype=jnp.int32)
-            fsel = jnp.where(glive[:, None], gsel[:, None] * G + lane,
-                             m).reshape(-1)
-            fsel_c = jnp.minimum(fsel, m - 1)
-            flive = jnp.broadcast_to(glive[:, None], (gcap, G)) \
-                .reshape(-1)
-            bricks_c = jnp.where(
-                glive[None, :, None],
-                jnp.take(hits.reshape(k_hits, ng, G), gsel_c, axis=1),
-                -1).reshape(k_hits, fcap)
-            r7 = jnp.stack([ox, oy, oz, dx, dy, dz, tmx, tmn], axis=1) \
-                .reshape(ng, G * 8)[gsel_c].reshape(fcap, 8)
-            fx, fy, fz = r7[:, 0], r7[:, 1], r7[:, 2]
-            fdx, fdy, fdz = r7[:, 3], r7[:, 4], r7[:, 5]
-            ftmx = r7[:, 6]
-            ftmn = r7[:, 7]
-        elif fcap < m:
-            # per-ray compaction fallback for ray counts not divisible
-            # by the group width
-            fsel, flive, fsel_c, pos = compact_mask(has, fcap, m)
-            ovf = has & (pos >= fcap)
-        else:
-            fcap = m
-            fsel = fsel_c = jnp.arange(m, dtype=jnp.int32)
-            flive = has
-            ovf = jnp.zeros((m,), bool)
-
-        if fcap < m and m % G != 0:
-            # wide-row gathers only (per-index cost, round-2 profile):
-            # one (k, fcap) take for the candidate bricks, one (fcap, 7)
-            # row gather for the ray components
-            bricks_c = jnp.where(flive[None, :],
-                                 jnp.take(hits, fsel_c, axis=1), -1)
-            r7 = jnp.stack([ox, oy, oz, dx, dy, dz, tmx, tmn],
-                           axis=1)[fsel_c]
-            fx, fy, fz = r7[:, 0], r7[:, 1], r7[:, 2]
-            fdx, fdy, fdz = r7[:, 3], r7[:, 4], r7[:, 5]
-            ftmx = r7[:, 6]
-            ftmn = r7[:, 7]
-        elif fcap >= m:
-            # fine_frac=1 (shadow rays): no compaction — skip the
-            # pointless stack + identity gather (profiled at ~10 ms per
-            # round on the full preset)
-            bricks_c = jnp.where(flive[None, :], hits, -1)
-            fx, fy, fz, fdx, fdy, fdz = ox, oy, oz, dx, dy, dz
-            ftmx = tmx
-            ftmn = tmn
-        # ONE gather for all k slots: (16, k*fcap) -> (k, 16, fcap)
-        bl = jnp.maximum(bricks_c, 0).reshape(-1)
-        words = _take_fine(accel, bl)
-        words = words.reshape(16, k_hits, fcap).transpose(1, 0, 2)
-        t_c, lin_c = fine_walk_multi(
-            fx, fy, fz, fdx, fdy, fdz,
-            bricks_c, words, ftmn, ftmx,
-            dims=accel_static_dims, bdims=bdims, origin_key=origin_key,
-            voxel_size=vs, bq=chunk, unroll=fine_unroll)
-
-        if fcap < m:
-            t = jnp.full((m,), jnp.inf, jnp.float32).at[fsel].set(
-                t_c, mode="drop")
-            lin = jnp.full((m,), -1, jnp.int32).at[fsel].set(
-                lin_c, mode="drop")
-            # overflow rays rewind to their first candidate brick and
-            # retry next round (the coarse walk re-finds the same bricks
-            # immediately — never dropped, never wrong, just late)
-            h0 = jnp.maximum(hits[0], 0)
-            ncx = jnp.where(ovf, h0 % bx, ncx)
-            ncy = jnp.where(ovf, (h0 // bx) % by, ncy)
-            ncz = jnp.where(ovf, h0 // (bx * by), ncz)
-            cont = jnp.where(ovf, 1, cont)
-        else:
-            t = jnp.where(flive, t_c, jnp.inf)
-            lin = jnp.where(flive, lin_c, -1)
-        return t, lin, ncx, ncy, ncz, cont
-
-    # per-round resident-buffer capacities: round 1 runs every admitted
-    # ray (or n/admit_frac of them when an admit mask pre-compacts, e.g.
-    # shadow rays); later rounds shrink to the straggler population
-    if admit is not None:
-        caps = [cap_up(-(-n // admit_frac))]
-    else:
-        caps = [n]
-    if resident_frac <= 1:
-        caps += [n] * max(0, rounds - 1)
-    else:
-        caps += [cap_up(-(-n // resident_frac))] * 3 \
-            + [cap_up(-(-n // (resident_frac * 4)))] * max(0, rounds - 4)
-
-    GR = 8
-    # CHAINED-DRAIN state (round-4): when the single static round runs
-    # compacted (the admit/shadow path), its post-round state is kept in
-    # the cap-sized domain and handed to the drain DIRECTLY — the 4
-    # domain->full state write-back scatters (~6.8 ms at cap=261k on
-    # chip: scatters price ~153M lanes/s) and the drain's full-width
-    # re-compaction both disappear.  Rays that overflowed the admit cap
-    # never entered the domain; they keep their INIT state at full width
-    # and a separate full-width drain pass (zero iterations unless the
-    # admit buffer overflowed) serves them — the same never-dropped
-    # contract, so results are bit-identical to the unchained order.
-    chained = None
-    for r in range(rounds):
-        cap = caps[r]
-        chain_this = (rounds == 1 and cap < n and drain)
-        if cap < n:
-            use_groups = (resident_groups if resident_groups is not None
-                          else (n % GR == 0 and cap % GR == 0))
-            if use_groups and n % GR == 0 and cap % GR == 0:
-                # GROUP resident compaction (round-4): the per-ray
-                # compact_mask scatter prices n LANES (~13 ms at 2.07M
-                # rays) — the dominant glue of the admit-compacted
-                # shadow pass.  Tiled rays are coherent, so compacting
-                # GROUPS of 8 consecutive rays cuts that scatter to
-                # n/8 lanes and turns the state gathers into wide group
-                # rows.  Inactive lanes inside a kept group ride along
-                # with act=0 (immediate no-op in the walk); groups that
-                # do not fit keep act_i=1 + stale-valid state and the
-                # next round / drain serves them — the same
-                # never-dropped overflow contract as per-ray slots, so
-                # results are bit-identical, only scheduling moves.
-                ng_r, gcap_r = n // GR, cap // GR
-                ga = act_i.reshape(ng_r, GR).max(axis=1)
-                gsel, glive, gsel_c, gpos = compact_mask(ga, gcap_r, ng_r)
-                lane_r = jnp.arange(GR, dtype=jnp.int32)
-                sel = jnp.where(glive[:, None],
-                                gsel[:, None] * GR + lane_r,
-                                n).reshape(-1)
-                sel_c = jnp.minimum(sel, n - 1)
-                live = jnp.broadcast_to(glive[:, None],
-                                        (gcap_r, GR)).reshape(-1)
-                r8 = rays8.reshape(ng_r, GR * 8)[gsel_c].reshape(cap, 8)
-                s4 = jnp.stack([cx, cy, cz, act_i], axis=1) \
-                    .reshape(ng_r, GR * 4)[gsel_c].reshape(cap, 4)
-                # full-width lanes NOT covered by this round's buffer
-                # (group overflowed the cap): the chained drain's
-                # backstop set
-                covered = jnp.repeat(gpos < gcap_r, GR)
-            else:
-                sel, live, sel_c, pos = compact_mask(act_i, cap, n)
-                covered = pos < cap
-                # packed ROW gathers (cheap) but scalar COLUMN
-                # write-backs: measured on chip a (cap, 4) row scatter
-                # costs 3x four 1-D scatters (45.7 vs 15.8 ms at full
-                # width)
-                r8 = rays8[sel_c]      # (cap, 8) — one row gather
-                s4 = jnp.stack([cx, cy, cz, act_i], axis=1)[sel_c]
-            t, lin, scx, scy, scz, cont_s = one_round(
-                r8[:, 0], r8[:, 1], r8[:, 2],
-                r8[:, 3], r8[:, 4], r8[:, 5],
-                s4[:, 0], s4[:, 1], s4[:, 2],
-                live & (s4[:, 3] > 0), r8[:, 7], r8[:, 6],
-                k_hits=k_list[r], fine_frac=ff_list[r])
-            # writes go through `sel` (empty slots hold the OOB index n
-            # and get dropped) — clamped duplicates would race on ray
-            # n-1.  Result writes additionally route non-hits to the
-            # drop index so no best_t[sel_c] read-back gather is needed.
-            got = jnp.isfinite(t) & live
-            sel_w = jnp.where(got, sel, n)
-            best_t = best_t.at[sel_w].set(t, mode="drop")
-            best_lin = best_lin.at[sel_w].set(lin, mode="drop")
-            new_act = (s4[:, 3] > 0) & ~got & (cont_s > 0) & live
-            if chain_this:
-                # keep the post-round state IN THE DOMAIN for the
-                # chained drain; full-width act_i shrinks to the
-                # admit-overflow set (init state still valid there)
-                chained = (new_act.astype(jnp.int32), scx, scy, scz,
-                           r8, sel)
-                act_i = act_i * (1 - covered.astype(jnp.int32))
-            else:
-                # state write-back runs for EVERY round (the drain and
-                # the unresolved count both need post-final-round
-                # state); rays that did not fit this round's resident
-                # buffer keep their stale-but-valid state and act_i=1,
-                # so the drain serves them
-                cx = cx.at[sel].set(scx, mode="drop")
-                cy = cy.at[sel].set(scy, mode="drop")
-                cz = cz.at[sel].set(scz, mode="drop")
-                act_i = act_i.at[sel].set(new_act.astype(jnp.int32),
-                                          mode="drop")
-        else:
-            act = act_i > 0
-            t, lin, ncx, ncy, ncz, cont = one_round(
-                oxa, oya, oza, dxa, dya, dza, cx, cy, cz,
-                act, t_min_b, t_max, k_hits=k_list[r],
-                fine_frac=ff_list[r],
-                walk_init=(r == 0 and fused1))
-            resolved = jnp.isfinite(t) & act
-            best_t = jnp.where(resolved, t, best_t)
-            best_lin = jnp.where(resolved, lin, best_lin)
-            cx, cy, cz = ncx, ncy, ncz
-            act_i = (act & ~resolved & (cont > 0)).astype(jnp.int32)
-
-    if not drain:
-        return (best_t, best_lin, jnp.sum(act_i), jnp.int32(0),
-                jnp.sum(act_i), jnp.int32(0))
-
-    # ---- exhaustiveness drain (VERDICT r2 item 2) -----------------------
-    # Rays still active after the static rounds (crossed more occupied
-    # bricks than k_hits x rounds covers without an accepted cell) drain
-    # to empty through a TWO-LEVEL structure: compact actives from full
-    # width into a small fixed domain (n/drain_frac), then an inner loop
-    # walks that domain until every ray resolves or exits.  Lap 1 runs
-    # STRAIGHT-LINE (round-4 restructure — see make_drain below); an
-    # outer while repeats the lap while actives remain, so
-    # dense-candidate scenes whose straggler count exceeds the domain (a
-    # camera inside the mesh was measured losing 600k rays with a single
-    # fixed-cap pass) stay EXACT, just slower.  Inner bound is static
-    # and sufficient: a ray crosses at most bx+by+bz+3 bricks, each
-    # iteration consumes drain_k occupied bricks or retires the ray.
-    from .pallas.brick_fine import fine_walk_multi
-    cap_d = cap_up(-(-n // drain_frac))
-    bxx, byy, bzz = bdims
-    max_iters = (bxx + byy + bzz + 3 + drain_k - 1) // drain_k + 1
-
-    def make_drain(m_s, rays8_s, idx_map, cap_ds):
-        """Drain machinery over a SOURCE DOMAIN of m_s lanes.
-
-        idx_map (int32[m_s] or None) maps source lanes to full-width
-        ray indices for the best_t/best_lin writes (None = the domain
-        IS full width).  The chained shadow/admit path hands the drain
-        its round-1 domain directly, skipping the full-width state
-        write-backs + re-compaction.
-
-        ROUND-4 RESTRUCTURE (measured: the drain cost 19.5 ms for a
-        16k-straggler lap-1-only scene — 42% of the trace for 0.8% of
-        the rays — while the per-inner-iteration marginal was <1 ms and
-        drain_k/drain_frac knobs moved little; K5 stage): the inner
-        while no longer carries the full-width best_t/best_lin buffers
-        or scatters into them per iteration.  It carries ONLY cap_ds
-        -sized local state (~1 MB vs ~50 MB), accumulates results in
-        cap-local (cap_ds,) buffers via vector selects, and ONE
-        post-while scatter routes them to full width.  Lap 1 runs
-        STRAIGHT-LINE (the compaction gathers and result scatters
-        outside any while body); the outer while remains as the exact
-        multi-lap backstop for populations that overflow cap_ds and
-        runs zero iterations otherwise."""
-
-        def drain_compact(act_s, cx_s, cy_s, cz_s):
-            """Compact active rays into the cap_ds drain domain (the
-            same group-of-8 trick as the resident rounds when shapes
-            allow — the per-lane scatter over the source domain is the
-            drain's fixed cost)."""
-            if m_s % 8 == 0 and cap_ds % 8 == 0:
-                ng_d, gcap_d = m_s // 8, cap_ds // 8
-                ga = act_s.reshape(ng_d, 8).max(axis=1)
-                gsel, glive, gsel_c, _ = compact_mask(ga, gcap_d, ng_d)
-                lane_d = jnp.arange(8, dtype=jnp.int32)
-                sel = jnp.where(glive[:, None],
-                                gsel[:, None] * 8 + lane_d,
-                                m_s).reshape(-1)
-                sel_c = jnp.minimum(sel, m_s - 1)
-                live = jnp.broadcast_to(glive[:, None], (gcap_d, 8)) \
-                    .reshape(-1)
-                r8 = rays8_s.reshape(ng_d, 64)[gsel_c].reshape(cap_ds, 8)
-                s4 = jnp.stack([cx_s, cy_s, cz_s, act_s], axis=1) \
-                    .reshape(ng_d, 32)[gsel_c].reshape(cap_ds, 4)
-            else:
-                sel, live, sel_c, _ = compact_mask(act_s, cap_ds, m_s)
-                r8 = rays8_s[sel_c]
-                s4 = jnp.stack([cx_s, cy_s, cz_s, act_s], axis=1)[sel_c]
-            return sel, live, r8, s4
-
-        def make_drain_body(dox, doy, doz, ddx, ddy, ddz, dtmn, dtmx):
-            def drain_body(dst):
-                dact, dcx, dcy, dcz, dt, dlin, it = dst
-                hits, ncx, ncy, ncz, cont = coarse_walk(
-                    dox, doy, doz, ddx, ddy, ddz, dcx, dcy, dcz,
-                    dact, dtmx, accel.coarse,
-                    accel.l2 if use_l2 else None,
-                    bdims=bdims, origin_key=origin_key, brick_world=bw,
-                    bq=chunk, k_hits=drain_k)
-                bricks_c = jnp.where((dact > 0)[None, :], hits, -1)
-                bl_idx = jnp.maximum(bricks_c, 0).reshape(-1)
-                words = _take_fine(accel, bl_idx)
-                words = words.reshape(16, drain_k, cap_ds) \
-                    .transpose(1, 0, 2)
-                t_c, lin_c = fine_walk_multi(
-                    dox, doy, doz, ddx, ddy, ddz, bricks_c, words, dtmn,
-                    dtmx, dims=accel_static_dims, bdims=bdims,
-                    origin_key=origin_key, voxel_size=vs,
-                    bq=chunk, unroll=fine_unroll)
-                got = jnp.isfinite(t_c) & (dact > 0)
-                # cap-local result accumulation: a retired lane never
-                # re-enters got, so each lane writes at most once —
-                # identical values to the old per-iteration scatters
-                dt = jnp.where(got, t_c, dt)
-                dlin = jnp.where(got, lin_c, dlin)
-                ndact = ((dact > 0) & ~got & (cont > 0)) \
-                    .astype(jnp.int32)
-                return (ndact, ncx, ncy, ncz, dt, dlin, it + 1)
-            return drain_body
-
-        def drain_cond(dst):
-            return jnp.logical_and(jnp.any(dst[0] > 0),
-                                   dst[6] < max_iters)
-
-        outer_cap_s = -(-m_s // cap_ds) + 1
-
-        def outer_cond(st):
-            # lap 1 always runs straight-line (outer starts at 1); the
-            # while serves only cap_ds overflow
-            return jnp.logical_and(jnp.any(st[0] > 0), st[6] < outer_cap_s)
-
-        def outer_body(st):
-            act_s, cx_s, cy_s, cz_s, best_t, best_lin, outer, acc_it = st
-            sel, live, r8, s4 = drain_compact(act_s, cx_s, cy_s, cz_s)
-            if idx_map is None:
-                sel_full = sel
-            else:
-                sel_full = jnp.where(
-                    live, idx_map[jnp.minimum(sel, m_s - 1)], n)
-            body = make_drain_body(r8[:, 0], r8[:, 1], r8[:, 2],
-                                   r8[:, 3], r8[:, 4], r8[:, 5],
-                                   r8[:, 7], r8[:, 6])
-            init = ((live & (s4[:, 3] > 0)).astype(jnp.int32),
-                    s4[:, 0], s4[:, 1], s4[:, 2],
-                    jnp.full((cap_ds,), jnp.inf, jnp.float32),
-                    jnp.full((cap_ds,), -1, jnp.int32),
-                    jnp.int32(0))
-            dact, _, _, _, dt, dlin, it_f = jax.lax.while_loop(
-                drain_cond, body, init)
-            # ONE post-while scatter pair routes cap-local results to
-            # full width (lanes that never resolved hold inf -> drop)
-            idx_w = jnp.where(jnp.isfinite(dt), sel_full, n)
-            best_t = best_t.at[idx_w].set(dt, mode="drop")
-            best_lin = best_lin.at[idx_w].set(dlin, mode="drop")
-            # retire the served rays; rays that overflowed cap_ds keep
-            # act_s = 1 and the next outer pass serves them
-            act_s = act_s.at[sel].set(dact, mode="drop")
-            return (act_s, cx_s, cy_s, cz_s, best_t, best_lin, outer + 1,
-                    acc_it + it_f)
-
-        return outer_cond, outer_body
-
-    _outer_cond_full, _outer_body_full = make_drain(n, rays8, None, cap_d)
-
-    # drain-entry population (profiling stat, return_stats="debug"):
-    # stragglers + rewound overflow about to be served by the drain
-    pre_drain = jnp.sum(act_i) + (jnp.sum(chained[0])
-                                  if chained is not None else jnp.int32(0))
-    unresolved_dom = jnp.int32(0)
-    laps_chained = jnp.int32(0)
-    its_chained = jnp.int32(0)
-    if chained is not None:
-        # CHAINED drain over the round-1 domain (no full-width state
-        # scatters, no full-width re-compaction): the sel map routes
-        # result writes to full width; admit-overflow rays are NOT in
-        # this domain — the full-width loop below serves them (zero
-        # iterations unless the admit buffer overflowed).  Lap 1 runs
-        # straight-line (the common single-lap case never enters the
-        # outer while).
-        act_dom, dcx, dcy, dcz, r8_dom, idx_map = chained
-        m_dom = act_dom.shape[0]
-        cap_dd = min(cap_d, m_dom)
-        outer_cond_d, outer_body_d = make_drain(
-            m_dom, r8_dom, idx_map, cap_dd)
-        st_d = outer_body_d(
-            (act_dom, dcx, dcy, dcz, best_t, best_lin, jnp.int32(0),
-             jnp.int32(0)))
-        (act_dom, _, _, _, best_t, best_lin, laps_chained,
-         its_chained) = jax.lax.while_loop(outer_cond_d, outer_body_d,
-                                           st_d)
-        unresolved_dom = jnp.sum(act_dom)
-
-    # lap 1 straight-line: compaction gathers + result scatters run as
-    # fusable straight-line code; the outer while is the multi-lap
-    # backstop only (zero iterations unless cap_d overflowed).  When the
-    # chained drain already served the round-1 domain, the full-width
-    # loop only backstops rare admit-cap overflow — keep it while-only
-    # (zero iterations in the common case) instead of always paying a
-    # full-width compaction lap.
-    st_f = (act_i, cx, cy, cz, best_t, best_lin, jnp.int32(0),
-            jnp.int32(0))
-    if chained is None:
-        st_f = _outer_body_full(st_f)
-    act_i, _, _, _, best_t, best_lin, laps, inner_its = jax.lax.while_loop(
-        _outer_cond_full, _outer_body_full, st_f)
-    # unresolved is 0 unless an iteration cap bit (both caps are true
-    # upper bounds, so this is a defensive invariant, not a drop path)
-    return (best_t, best_lin, jnp.sum(act_i) + unresolved_dom,
-            laps + laps_chained, pre_drain, inner_its + its_chained)
-
-
-def _tuned_chunk(accel, chunk):
-    """Big coarse tables need small walk blocks so the hoisted mux rows
-    stay in vregs (rows * bq/8 vregs); 64-row tables (512^3 grids) run
-    at bq=32."""
-    rows = accel.coarse.shape[0]
-    if rows > 8:
-        return min(chunk, max(8, 2048 // rows // 8 * 8))
-    return chunk
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def _trace(o, d, accel, t_min, t_max, *, interpret):
+    lin = brick_dda(
+        o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_min, t_max,
+        accel.fine_off, accel.l2, accel.coarse, accel.fine,
+        dims=accel.dims, bdims=accel.bdims, origin=accel.origin_key,
+        voxel_size=accel.voxel_size, interpret=interpret)
+    unresolved = jnp.sum(lin == -2)
+    lin = jnp.maximum(lin, -1)
+    # the hit t is evaluated outside the kernel with the dda's own
+    # expression, so it matches trace_grid_dda's t for the same cell
+    # (the kernel's in-loop t may be contracted into FMAs differently)
+    t = _dda_final_t(lin, o, d, accel.origin,
+                     jnp.float32(accel.voxel_size), dims=accel.dims)
+    return t, lin, unresolved
 
 
 def trace_grid_fast(origins, dirs, accel: BrickAccel, t_min=TMIN,
-                    t_max=TMAX, rounds=1, chunk=64, fine="walk",
-                    admit=None, k_hits=5, two_level=None, fine_frac=8,
-                    resident_frac=4, admit_frac=4, drain=True,
-                    drain_frac=64, drain_k=8, fine_unroll=13,
-                    resident_groups=None, self_admit=False,
-                    return_stats=False, mega=False, mega_opts=()):
-    """(t, cell_lin) nearest voxel hit; same contract as trace_grid_dda.
+                    t_max=TMAX, admit=None, return_stats=False):
+    """(t, cell_lin) of the nearest voxel hit; the trace_grid_dda contract.
 
-    drain=True (default) makes the trace EXHAUSTIVE: rays still active
-    after the static rounds (more occupied bricks crossed than
-    k_hits x rounds covers) compact into an n/drain_frac domain and a
-    statically-bounded while_loop walks them to resolution — zero
-    iterations when the static rounds already drained the queue.
-    return_stats=True additionally returns n_unresolved (rays that
-    overflowed the drain domain; 0 = provably exhaustive result).
-
-    rounds=1 x k_hits=5 is the measured round-3 sweep winner at the
-    full preset (69.3 ms tiled vs 154 for the old r3 x k8 default,
-    identical 210157 hits): the drain makes extra full-width rounds
-    pure cost — the per-round fine-words take alone prices 25 ms at
-    2.07M candidate indices (stage-K in-jit rates), while the compacted
-    drain serves the ~7% stragglers far cheaper.  drain_frac=64
-    measured best (16 was 1.8x worse: an oversized drain domain re-pays
-    full-width glue; 128 also worse).  fine_frac=8 is the round-4
-    re-sweep winner (46.5 ms vs 53.1 for round 3's ff5 at the bench
-    preset, identical hits, unresolved=0): the drain got cheap enough
-    (~4 ms/lap) that a smaller fine buffer — whose overflow rewinds
-    into the drain — beats paying the k x fcap take at ff5 width.
-    ff10 measured marginally better (45.8) but sits closer to the
-    overflow cliff on candidate-dense viewpoints; ff12 already loses
-    (47.9).  self_admit=True (round-1 compaction on the bbox clip) was
-    measured and LOSES (68-93 ms): a compacted round pays ~6 write-back
-    scatters over its domain at the ~153M lanes/s scatter wall — more
-    than the full-width walk it saves.  Keep round 1 full-width.
-
-    (Round-5 pruning: the continuation mini-round knobs (cont_rounds/
-    cont_k/cont_frac — measured strictly additive both rounds they were
-    tried), drain_hoist (flat-to-worse), fine_static/fine_ilp/fine_bq
-    (all within noise) and the profiling-only drain="off_unsafe"/
-    drain_max_iters modes were deleted; their measurements live in
-    RESULTS.md.)
-
-    admit: optional bool mask (batch shape) — only admitted rays trace
-    (others return miss); the round-1 resident buffer is then compacted
-    to n/4, which is the shadow-ray fast path.  two_level=None (default)
-    auto-enables the fused per-lane two-speed superbrick walk when the
-    L1 table is wide (accel.coarse rows > 4, i.e. big grids) — measured
-    bit-identical to the single-level walk on chip (210114/210114 hits
-    on the full preset) and faster there; narrow tables stay
-    single-level.  Pass True/False to force.  fine_frac=F compacts
-    candidate rays into an n/F fine buffer (1 = no compaction).  With
-    the drain on, fine overflow in ANY round — including the last —
-    rewinds the ray and the drain serves it exactly; only drain=False
-    forces the final round full-width (see _trace_fast_impl).
-    resident_frac=F compacts straggler rays into n/F buffers for rounds
-    2+ (1 = no resident compaction).
+    t = +inf and cell_lin = -1 on a miss.  t_min/t_max are scalars or
+    per-ray arrays of the batch shape; admit (optional bool, batch shape)
+    traces only the admitted rays, the rest miss.  return_stats=True
+    also returns `unresolved`, the count of rays still walking at the
+    kernel's iteration bound (0 means the result is exhaustive).
     """
-    if mega and accel.fine_sb is not None:
-        # one-dispatch megakernel (VERDICT r4 item 1): the whole trace —
-        # walk, per-voxel resolve, drain — in one pallas_call with
-        # in-kernel superbrick DMA; same (t, lin) contract
-        from .pallas.mega_trace import trace_grid_mega
-        out = trace_grid_mega(origins, dirs, accel, t_min, t_max,
-                              admit=admit,
-                              return_stats=bool(return_stats),
-                              **dict(mega_opts))
-        if return_stats == "debug" or return_stats == "full":
-            t_m, lin_m, alive = out
-            z = jnp.int32(0)
-            return ((t_m, lin_m, alive, z, z, z)
-                    if return_stats == "debug" else (t_m, lin_m, alive, z))
-        return out
     batch_shape = origins.shape[:-1]
-    o = origins.reshape(-1, 3)
-    d = dirs.reshape(-1, 3)
-    t_max_b = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32),
-                               batch_shape).reshape(-1)
-    admit_f = None if admit is None else admit.reshape(-1)
-    if isinstance(k_hits, list):
-        k_hits = tuple(k_hits)  # hashable for the jit key
-    if isinstance(fine_frac, list):
-        fine_frac = tuple(fine_frac)
-    t_min_in = jnp.asarray(t_min, jnp.float32)
-    if t_min_in.ndim:
-        t_min_in = t_min_in.reshape(-1)
-    t, lin, unresolved, laps, pre_drain, inner_its = _trace_fast_impl(
-        o, d, accel, t_min_in, t_max_b, admit_f,
-        accel_static=(accel.bdims, accel.origin_key, accel.voxel_size,
-                      accel.dims),
-        rounds=rounds, chunk=_tuned_chunk(accel, chunk), fine=fine,
-        k_hits=k_hits, two_level=two_level, fine_frac=fine_frac,
-        resident_frac=resident_frac, admit_frac=admit_frac, drain=drain,
-        drain_frac=drain_frac, drain_k=drain_k, fine_unroll=fine_unroll,
-        resident_groups=resident_groups, self_admit=self_admit)
-    if return_stats == "debug":
-        # pre_drain = rays entering the drain (stragglers + rewound
-        # fine-overflow) — the population that scales drain lap cost;
-        # inner_its = total drain inner-while iterations across laps
-        # (each iteration pays an in-while k x cap_d words gather);
-        # profiling-only stats
-        return (t.reshape(batch_shape), lin.reshape(batch_shape),
-                unresolved, laps, pre_drain, inner_its)
-    if return_stats == "full":
-        # laps = drain outer-loop iteration count (each lap pays a
-        # full-width compaction inside a while body — the profiling
-        # counter that attributes shadow-pass drain cost)
-        return (t.reshape(batch_shape), lin.reshape(batch_shape),
-                unresolved, laps)
-    if return_stats:
-        return (t.reshape(batch_shape), lin.reshape(batch_shape),
-                unresolved)
-    return t.reshape(batch_shape), lin.reshape(batch_shape)
+
+    def per_ray(x):
+        return jnp.broadcast_to(jnp.asarray(x, jnp.float32),
+                                batch_shape).reshape(-1)
+
+    t_lo, t_hi = per_ray(t_min), per_ray(t_max)
+    if admit is not None:
+        t_hi = jnp.where(admit.reshape(-1), t_hi, -jnp.inf)
+    t, lin, unresolved = _trace(
+        origins.reshape(-1, 3), dirs.reshape(-1, 3), accel, t_lo, t_hi,
+        interpret=use_interpreter())
+    out = (t.reshape(batch_shape), lin.reshape(batch_shape))
+    return out + (unresolved,) if return_stats else out
 
 
 def any_hit_grid_fast(origins, dirs, accel: BrickAccel, t_min=TMIN,
-                      t_max=TMAX, rounds=1, chunk=64, fine="walk",
-                      admit=None, k_hits=4, two_level=None,
-                      resident_frac=2, admit_frac=8, fine_frac=None,
-                      drain_frac=64, drain_k=8, resident_groups=None,
-                      drain=True, mega=False, mega_opts=()):
-    """True where some voxel accepts along the ray (shadow query).
-
-    drain=False is an ATTRIBUTION knob only: it skips the
-    exhaustiveness drain, so rays that cross more occupied bricks than
-    the static rounds cover are silently un-occluded — never use it for
-    a real image (the final static round is forced full-width in
-    _trace_fast_impl, limiting but not eliminating the loss).
-
-    rounds=1 x k_hits=4 + the exhaustiveness drain is the round-3 sweep
-    winner (61 ms vs 129 for round 2's k=(8,4) x r2 config at the full
-    preset, identical 101985 occlusions): shallow slots resolve nearly
-    every shadow ray (they start ON surfaces), and the compacted drain
-    serves stragglers exactly instead of paying extra full-width
-    rounds whose ff1 fine gather prices per k x cap whether lanes are
-    alive or not.  Dense-admit scenes (every pixel lit-and-facing, e.g.
-    a wall close-up) overflow the n/4 admit buffer into the drain and
-    stay exact (test_any_hit_dense_admit_no_overflow_loss pins this).
-    An any-hit ray still stops at its first accepted cell, so queues
-    deeper than needed stay wasted gather traffic.
-
-    admit_frac=8 x fine_frac=1 is the round-3 stage-G winner (73.8 ms vs
-    95.5 for af4 x ff2 at the full preset, identical 101985 occlusions):
-    shadow rays START on surfaces, so nearly every admitted ray has an
-    immediate candidate — fine compaction buys nothing (and at group
-    granularity it OVERFLOWS: candidate groups exceed fcap/8, each
-    overflow feeding a drain pass), while halving the admit domain
-    halves the walk and state glue.  The fine buffer must cover ~ALL
-    admitted rays: an n/8 buffer once silently dropped 15% of occlusions
-    on chip (69609 vs 82218) before round 2 pinned full-width finals,
-    and the drain now serves any admit overflow exactly (dense-admit
-    close-ups overflow the n/8 admit buffer into the drain and stay
-    exact — test_any_hit_dense_admit_no_overflow_loss pins this).
-    """
-    if mega and accel.fine_sb is not None:
-        # the megakernel retires a lane at its FIRST accepted cell, so
-        # its nearest trace doubles as the any-hit query exactly
-        from .pallas.mega_trace import trace_grid_mega
-        t, _ = trace_grid_mega(origins, dirs, accel, t_min, t_max,
-                               admit=admit, **dict(mega_opts))
-        return jnp.isfinite(t)
-    # ff=1: no fine compaction — every admitted ray goes straight to the
-    # fine stage.  fine_frac=None keeps this default; drain=False
-    # callers get the final round forced full-width in _trace_fast_impl.
-    ff = (1,) * rounds if fine_frac is None else fine_frac
+                      t_max=TMAX, admit=None):
+    """True where some voxel accepts along the ray (the shadow query):
+    the nearest trace, whose lanes retire at their first accepted cell."""
     t, _ = trace_grid_fast(origins, dirs, accel, t_min=t_min, t_max=t_max,
-                           rounds=rounds, chunk=chunk, fine=fine,
-                           admit=admit, k_hits=k_hits, fine_frac=ff,
-                           two_level=two_level,
-                           resident_frac=resident_frac,
-                           admit_frac=admit_frac,
-                           drain_frac=drain_frac, drain_k=drain_k,
-                           resident_groups=resident_groups, drain=drain)
+                           admit=admit)
     return jnp.isfinite(t)

@@ -1,19 +1,15 @@
 """Triangle acceleration structure: uniform tri-grid + brick-walk march.
 
-TPU-native replacement for the reference's triangle BLAS
-(/root/reference/src/hello_vulkan.cpp:596-635 objectToVkGeometryKHR and
-the TLAS built PREFER_FAST_TRACE at :755): the driver's BVH becomes a
-uniform grid binning triangles into cells, marched with the SAME Pallas
-brick-walk machinery the voxel path uses (ops/traverse_fast) — the
-tri-grid's nonempty-cell mask is just another BrickAccel.
+Replacement for the reference's triangle BLAS (hello_vulkan.cpp:596-635
+objectToVkGeometryKHR and the TLAS built PREFER_FAST_TRACE at :755): the
+driver's BVH becomes a uniform grid binning triangles into cells, marched
+with the same brick-walk kernel the voxel path uses (ops/traverse_fast) —
+the tri-grid's nonempty-cell mask is just another BrickAccel.
 
-Design (why a grid and not a BVH): TPU lanes can't chase per-lane
-pointers; the brick walk already turns "next nonempty cell along the
-ray" into a VMEM bitmask DDA at ~3.5 G lookups/s, and per-cell triangle
-LISTS are fixed-width rows that gather wide (HBM gathers price per
-index, wide rows amortize ~16x — the round-2 profile).  Build cost is
-one voxelize pass (SAT-exact binning, ops/voxelize.py) — itself the
-framework's fastest primitive.
+Design (why a grid and not a BVH): the brick walk already turns "next
+nonempty cell along the ray" into a bitmask DDA, and per-cell triangle
+lists are fixed-width rows that gather as whole rows.  Build cost is one
+voxelize pass (SAT-exact binning, ops/voxelize.py).
 
 Trace = rounds of (find next nonempty cell via trace_grid_fast with a
 per-ray advancing t_min) -> (gather the cell's triangle row, Möller-
@@ -42,6 +38,7 @@ import numpy as np
 
 from .compact import compact_mask
 from .intersect import TMAX, TMIN, hit_triangles
+from .pallas.brick_dda import BLOCK
 from .traverse_fast import BrickAccel, build_accel, trace_grid_fast
 
 __all__ = ["TriAccel", "build_tri_accel", "trace_triangles_grid",
@@ -192,12 +189,9 @@ def _mt_cell(ta, o, d, slot_rows, t_lo, span_hi, t_max):
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("ta_static", "rounds", "cand_frac", "chunk",
-                     "inner_rounds", "inner_k"),
-)
+    jax.jit, static_argnames=("ta_static", "rounds", "cand_frac"))
 def _trace_tri_impl(o, d, ta, t_min, t_max, *, ta_static, rounds,
-                    cand_frac, chunk, inner_rounds=1, inner_k=2):
+                    cand_frac):
     dims, vs_s, l_width = ta_static
     vs = jnp.float32(vs_s)
     n = o.shape[0]
@@ -234,16 +228,15 @@ def _trace_tri_impl(o, d, ta, t_min, t_max, *, ta_static, rounds,
     # ---- marching rounds ----------------------------------------------
     t_cur = t_min_b
     active = ~got0
-    per_block = chunk * 128
 
     def cap_up(c):
-        return max(per_block, -(-c // per_block) * per_block)
+        """Round a capacity up to whole kernel blocks."""
+        return max(BLOCK, -(-c // BLOCK) * BLOCK)
 
     def march(state, walk_frac=1):
         """One marching lap.  walk_frac > 1 compacts the MARCH DOMAIN
-        before the inner grid trace (round-3 stage-T finding: the inner
-        trace_grid_fast is the lap's dominant cost and was running
-        full-width every lap while later laps have few active rays);
+        before the inner grid trace (later laps have few active rays, so
+        a full-width inner trace every lap would be mostly idle lanes);
         active rays beyond the compacted budget retry next lap with
         t_cur unchanged — the same starvation semantics as cand_frac,
         covered by the same lap bound."""
@@ -254,20 +247,20 @@ def _trace_tri_impl(o, d, ta, t_min, t_max, *, ta_static, rounds,
             ow, dw = o[wsel_c], d[wsel_c]
             tmn = jnp.where(wlive, t_cur[wsel_c], 0.0)
             tmx = jnp.where(wlive, t_max_b[wsel_c], -1.0)
-            t_cw, lin_w = trace_grid_fast(
-                ow, dw, ta.brick, t_min=tmn, t_max=tmx,
-                rounds=inner_rounds, chunk=chunk, k_hits=inner_k)
+            t_cw, lin_w = trace_grid_fast(ow, dw, ta.brick, t_min=tmn,
+                                          t_max=tmx)
             widx = jnp.where(wlive, wsel, n)
             t_cell = jnp.full((n,), jnp.inf, jnp.float32).at[widx].set(
                 t_cw, mode="drop")
             lin = jnp.full((n,), -1, jnp.int32).at[widx].set(
                 lin_w, mode="drop")
+            walked = jnp.zeros((n,), bool).at[widx].set(True, mode="drop")
         else:
             tmn = jnp.where(active, t_cur, 0.0)
             tmx = jnp.where(active, t_max_b, -1.0)
-            t_cell, lin = trace_grid_fast(
-                o, d, ta.brick, t_min=tmn, t_max=tmx,
-                rounds=inner_rounds, chunk=chunk, k_hits=inner_k)
+            t_cell, lin = trace_grid_fast(o, d, ta.brick, t_min=tmn,
+                                          t_max=tmx)
+            walked = jnp.ones((n,), bool)
         has = jnp.isfinite(t_cell) & active
         # compact candidate rays before the (m, L) list gather
         cap = cap_up(-(-n // cand_frac)) if cand_frac > 1 else n
@@ -314,9 +307,11 @@ def _trace_tri_impl(o, d, ta, t_min, t_max, *, ta_static, rounds,
         t_cur = jnp.where(served & ~resolved,
                           jnp.maximum(t_cur, t_next), t_cur)
         # stay active: unresolved rays that were served this round (march
-        # on) or that found a cell but overflowed the candidate cap
-        # (retry with an unchanged t_cur); rays with no cell are misses
-        active = active & ~resolved & (served | has) & (t_cur <= t_max_b)
+        # on), that found a cell but overflowed the candidate cap, or that
+        # overflowed the walk domain (both retry with an unchanged
+        # t_cur); rays whose walk found no cell are misses
+        active = active & ~resolved & (served | has | ~walked) \
+            & (t_cur <= t_max_b)
         return (best_t, best_id, best_u, best_v, t_cur, active)
 
     state = (best_t, best_id, best_u, best_v, t_cur, active)
@@ -354,8 +349,7 @@ def _trace_tri_impl(o, d, ta, t_min, t_max, *, ta_static, rounds,
 
 
 def trace_triangles_grid(origins, dirs, ta: TriAccel, t_min=TMIN,
-                         t_max=TMAX, rounds=6, cand_frac=4, chunk=32,
-                         inner_rounds=1, inner_k=2,
+                         t_max=TMAX, rounds=6, cand_frac=4,
                          return_stats=False):
     """Nearest triangle hit via the tri-grid march.
 
@@ -374,8 +368,7 @@ def trace_triangles_grid(origins, dirs, ta: TriAccel, t_min=TMIN,
     t, pid, u, v, unresolved, laps = _trace_tri_impl(
         o, d, ta, t_min_b, t_max_b,
         ta_static=(ta.dims, ta.voxel_size, ta.l_width),
-        rounds=rounds, cand_frac=cand_frac, chunk=chunk,
-        inner_rounds=inner_rounds, inner_k=inner_k)
+        rounds=rounds, cand_frac=cand_frac)
     out = (t.reshape(batch_shape), pid.reshape(batch_shape),
            u.reshape(batch_shape), v.reshape(batch_shape))
     if return_stats == "full":
@@ -386,9 +379,8 @@ def trace_triangles_grid(origins, dirs, ta: TriAccel, t_min=TMIN,
 
 
 def any_hit_triangles_grid(origins, dirs, ta: TriAccel, t_min=TMIN,
-                           t_max=TMAX, rounds=6, chunk=32):
+                           t_max=TMAX, rounds=6):
     """Occlusion predicate (shadow rays) via the tri-grid march."""
     t, _, _, _ = trace_triangles_grid(origins, dirs, ta, t_min=t_min,
-                                      t_max=t_max, rounds=rounds,
-                                      chunk=chunk)
+                                      t_max=t_max, rounds=rounds)
     return jnp.isfinite(t)

@@ -1,4 +1,4 @@
-"""TPU-native mesh voxelization.
+"""Mesh voxelization on the device.
 
 The reference voxelizes on the CPU: per triangle, a clamped voxel window is
 scanned with a triple loop and a SAT test per cell (VoxelBuilder.hpp:164-196
@@ -15,10 +15,8 @@ XLA computation:
     a trash slot) into a dense occupancy volume — the deterministic
     equivalent of the thread-bucket merge at VoxelBuilder.hpp:533-537.
 
-The computation is chunked over triangles with a static python loop
-(straight-line under jit — gathers/scatters inside lax.scan bodies are
-~40x slower on this TPU) to bound peak memory; the window shape is a
-static argument so the kernel is jittable
+The computation is chunked over triangles with a lax.scan to bound peak
+memory; the window shape is a static argument so the kernel is jittable
 and reusable across frames (per-frame re-voxelization of a deforming mesh
 never leaves the device).  The host wrapper buckets triangles by per-axis
 window extent so a few huge triangles don't drag every small one through
@@ -209,13 +207,16 @@ def _scatter_bucket(occ_acc, calls, tri_verts, origin, vs, half, dims,
     tri_verts = jnp.pad(tri_verts, ((0, pad), (0, 0), (0, 0)),
                         constant_values=np.inf)
     tri_chunks = tri_verts.reshape(n_chunks, chunk, 3, 3)
-    for c in range(n_chunks):
-        hit, lin, _ = _chunk_hits(tri_chunks[c], origin, vs, half, dims,
-                                  window)
+
+    def body(carry, tri):
+        occ_acc, calls = carry
+        hit, lin, _ = _chunk_hits(tri, origin, vs, half, dims, window)
         lin_t = jnp.where(hit, lin, n_cells)
         occ_acc = occ_acc.at[lin_t.reshape(-1)].set(
             jnp.uint8(1), mode="promise_in_bounds")
-        calls = calls + hit.sum(dtype=jnp.int32)
+        return (occ_acc, calls + hit.sum(dtype=jnp.int32)), None
+
+    (occ_acc, calls), _ = jax.lax.scan(body, (occ_acc, calls), tri_chunks)
     return occ_acc, calls
 
 
@@ -283,21 +284,16 @@ def voxelize_dense(tri_verts, origin, *, dims, voxel_size_static, window,
                into the flattened volume; "window" = ONE scatter index
                per triangle writing its dense (WZ, WY, WX) hit-mask
                block via lax.scatter_max into a window-padded volume.
-               Window has ~WX*WY*WZ x fewer scatter indices but XLA's
-               windowed-update lowering measured 14x slower on chip
-               (7487 vs 538 ms, 1M tris at 512^3), so "auto" = flat
-               everywhere; "window" remains for A/B.  Both produce
-               identical occupancy (max over {0,1} hits == OR).
+               Window has ~WX*WY*WZ x fewer scatter indices; "auto" =
+               flat (the GPU A/B is not measured yet), "window" remains
+               for that A/B.  Both produce identical occupancy (max over
+               {0,1} hits == OR).
 
     Returns occ (Z, Y, X) uint8 in {0,1}, set_calls (int32 scalar: total
     SAT hits including duplicates — the reference's m_voxelSet counter),
     and optionally (hit_mask, hit_lin, hit_rank).
     """
     if scatter == "auto":
-        # measured on chip (round 2, clean solo runs): the window-block
-        # scatter_max lowering is 14x SLOWER than flat element scatters
-        # (7487 vs 538 ms for 1M tris at 512^3) — XLA's windowed-update
-        # scatter path is the wrong tool; flat wins on every backend
         scatter = "flat"
     nx, ny, nz = dims
     wx_c, wy_c, wz_c = window
@@ -314,9 +310,9 @@ def voxelize_dense(tri_verts, origin, *, dims, voxel_size_static, window,
     # Padded triangles get +inf vertices: their window is empty.
     tri_verts = jnp.pad(tri_verts, ((0, pad), (0, 0), (0, 0)),
                         constant_values=np.inf)
+    # chunks run as a lax.scan: one compiled body however many chunks
+    # (an unrolled chunk loop at 1M triangles took ~10 min to compile)
     tri_chunks = tri_verts.reshape(n_chunks, chunk, 3, 3)
-    # NOTE: chunks iterate as a STATIC python loop below — scatters inside
-    # lax.scan bodies run ~40x slower on this TPU than straight-line code.
 
     def body(carry, tri):
         occ_acc, calls = carry
@@ -368,20 +364,14 @@ def voxelize_dense(tri_verts, origin, *, dims, voxel_size_static, window,
         # one extra trash slot absorbs the miss writes
         carry = (jnp.zeros((max(n_cells, 1) + 1,), dtype=jnp.uint8),
                  jnp.int32(0))
-    extras_list = []
-    for c in range(n_chunks):
-        carry, ex = body(carry, tri_chunks[c])
-        if with_hit_mask:
-            extras_list.append(ex)
-    occ_acc, calls = carry
+    (occ_acc, calls), extras = jax.lax.scan(body, carry, tri_chunks)
     if scatter == "window":
         occ = occ_acc[:nz, :ny, :nx]
     else:
         occ = occ_acc[:n_cells].reshape(nz, ny, nx)
     if with_hit_mask:
-        hit = jnp.concatenate([e[0] for e in extras_list])[:f_total]
-        lin = jnp.concatenate([e[1] for e in extras_list])[:f_total]
-        rank = jnp.concatenate([e[2] for e in extras_list])[:f_total]
+        hit, lin, rank = (e.reshape((f_padded,) + e.shape[2:])[:f_total]
+                          for e in extras)
         return occ, calls, hit, lin, rank
     return occ, calls
 
@@ -395,8 +385,7 @@ def plan_buckets(vertices, faces, origin, voxel_size, dims,
     merge with the least wasted slot volume) keeps the number of distinct
     compiled kernel variants bounded.
 
-    Round-2 measurement that shaped this: voxelization is scatter-bound —
-    every (triangle, window-slot) pair costs one scatter slot whether or
+    Every (triangle, window-slot) pair costs one scatter slot whether or
     not the SAT hits, so a single global max window (6, 4, 6) made 1M
     small triangles pay 144 slots each when their exact windows average
     ~12.  Exact-shape buckets cut slot count ~10x; pow2 rounding (the old
@@ -472,13 +461,10 @@ class VoxelizePlan:
         # as long as no triangle's reference window outgrows its bucket
         # shape.  The default (False) applies the measured ~3x slot cut,
         # which is proven only for the plan-time vertices — use it for
-        # fixed-geometry reuse (bench re-runs, repeated renders).
-        # Measured on chip (round 2, clean solo runs, 1M tris, 512^3):
-        # chunk 16384 -> 538 ms, 262144 -> 746 ms (bigger scatter ops do
-        # not help), 8192 -> 523 ms; buckets 6/12/24 -> 1008/538/472 ms
-        # (exact windows are the lever: padded-slot waste is 1.48x at 12
-        # buckets, 1.14x at 24 — voxelization is scatter-slot-bound at
-        # ~137M slots/s).
+        # fixed-geometry reuse (bench re-runs, repeated renders).  Every
+        # (triangle, window slot) pair costs one scatter slot hit or miss,
+        # so exact-shape buckets (24 by default) keep padded-slot waste
+        # low; chunk and bucket count are not tuned for the GPU yet.
         from .geometry import grid_dims, mesh_bbox
 
         v = np.asarray(vertices, np.float32).reshape(-1, 3)
@@ -606,8 +592,8 @@ def voxelize_mesh(vertices, faces, voxel_size, *, bb_min=None, bb_max=None,
 
     occ = jnp.zeros((nz, ny, nx), dtype=jnp.uint8)
     total_calls = 0
-    # chunk*capacity budget: large on TPU for throughput, small on CPU
-    # (XLA:CPU scatter compile time grows with scatter size)
+    # chunk*capacity budget: large on accelerators for throughput, small
+    # on CPU (XLA:CPU scatter compile time grows with scatter size)
     budget = (1 << 22) if jax.default_backend() != "cpu" else (1 << 14)
     for win, idx in buckets:
         if len(idx) == 0:

@@ -2,20 +2,20 @@
 
 The reference is strictly single-GPU (SURVEY.md section 2.4); its only
 parallelism is a std::thread fan-out over triangles with a serial merge
-(VoxelBuilder.hpp:462-537).  The TPU-native equivalents:
+(VoxelBuilder.hpp:462-537).  The multi-device equivalents:
 
   voxelize: shard triangles across devices ("data" axis); each device
             scatters into its own occupancy copy; merge with a bitwise-OR
-            all-reduce (jnp.max psum-style over uint8) riding ICI —
-            the deterministic analog of the thread-bucket merge.
+            all-reduce (psum over {0, 1}) — the deterministic analog of
+            the thread-bucket merge.
   render:   shard the pixel rows ("rays" axis) — each device traces its
             rows against the replicated scene; the framebuffer is formed
             by construction (no gather needed under jit output sharding).
   frames:   batch-of-frames data parallelism for animation / deforming
             meshes (BASELINE config 5).
 
-Everything uses jax.sharding.Mesh + shard_map with explicit collectives;
-no NCCL/MPI analog exists or is needed.
+Everything uses jax.sharding.Mesh + shard_map with explicit collectives,
+which XLA lowers to NCCL on GPUs.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 __all__ = ["make_mesh", "shard_triangles", "voxelize_sharded",
-           "voxelize_frames_sharded", "render_sharded",
+           "voxelize_frames_sharded", "render_sharded", "shard_grid_zslab",
            "render_zslab_sharded", "or_reduce_occupancy"]
 
 
@@ -52,7 +52,7 @@ def shard_triangles(tri_verts: np.ndarray, n_shards: int) -> np.ndarray:
 def or_reduce_occupancy(occ, axis_name: str):
     """Bitwise-OR all-reduce of {0,1} uint8 occupancy over the mesh axis.
 
-    OR == max == (psum > 0); psum maps onto the ICI all-reduce fast path.
+    OR == max == (psum > 0); psum is the all-reduce every backend has.
     """
     return (jax.lax.psum(occ.astype(jnp.int32), axis_name) > 0) \
         .astype(jnp.uint8)
@@ -139,15 +139,13 @@ def voxelize_frames_sharded(frame_verts, faces, origin, mesh: Mesh, *,
 
 def render_sharded(scene, view_inv, proj_inv, mesh: Mesh, *, width, height,
                    light=None, clear_color=(1.0, 1.0, 1.0, 1.0),
-                   backend="fast", shadows=True, fast_opts=None):
+                   backend="fast", shadows=True):
     """Row-sharded render: each device traces ceil(height/n) rows.
 
-    This is the multi-chip form of the production render (SURVEY §2.4
+    This is the multi-device form of the production render (SURVEY §2.4
     row 3 — the SIMT-ray axis is what shards): backend defaults to the
-    same Pallas "fast" path render_image ships, with the same per-shard
-    ray-coherence tiling when the shard's row block tiles evenly, and
-    falls back to the dda/brute paths exactly like render_image.
-    shadows/fast_opts mirror render_image's knobs.
+    "fast" brick traversal, and falls back to the dda/brute paths exactly
+    like render_image.
 
     Any (height, n_devices) combination works: the row axis is padded to
     a multiple of n (padding rows trace duplicate last-row rays — their
@@ -158,8 +156,7 @@ def render_sharded(scene, view_inv, proj_inv, mesh: Mesh, *, width, height,
     from ..models.scene import Light
     from ..ops.intersect import make_camera_rays
     from ..render import shading
-    from ..render.pipeline import (_can_tile, _tile_rays, _untile_rays,
-                                   render_rays)
+    from ..render.pipeline import render_rays
 
     light = light or Light()
     axis = mesh.axis_names[0]
@@ -168,9 +165,6 @@ def render_sharded(scene, view_inv, proj_inv, mesh: Mesh, *, width, height,
     pad_rows = rows_per * n - height
     if backend == "fast" and scene.accel is None:
         backend = "dda"  # render_image's own fallback chain
-    opts = tuple(sorted(
-        (k, tuple(v) if isinstance(v, list) else v)
-        for k, v in fast_opts.items())) if fast_opts else ()
 
     lp = jnp.asarray(light.position, jnp.float32)
     li = jnp.float32(light.intensity)
@@ -197,14 +191,8 @@ def render_sharded(scene, view_inv, proj_inv, mesh: Mesh, *, width, height,
                                         (pad_rows,) + dirs.shape[1:])])
         o = jax.lax.dynamic_slice_in_dim(origins, row0, rows_per, axis=0)
         d = jax.lax.dynamic_slice_in_dim(dirs, row0, rows_per, axis=0)
-        tiled = backend == "fast" and _can_tile(rows_per, width)
-        if tiled:
-            o = _tile_rays(o, rows_per, width)
-            d = _tile_rays(d, rows_per, width)
         rgb = render_rays(scene_rep, o, d, lp, li, lt, cc, backend=backend,
-                          shadows=shadows, fast_opts=opts)
-        if tiled:
-            rgb = _untile_rays(rgb, rows_per, width)
+                          shadows=shadows)
         rgba = jnp.concatenate(
             [rgb, jnp.ones(rgb.shape[:-1] + (1,), jnp.float32)], axis=-1)
         return shading.gamma_post(rgba)
@@ -213,32 +201,62 @@ def render_sharded(scene, view_inv, proj_inv, mesh: Mesh, *, width, height,
     return img[:height] if pad_rows else img
 
 
+def shard_grid_zslab(scene, mesh: Mesh, backend="fast"):
+    """Split the scene's voxel grid into one Z-slab per device of `mesh`.
+
+    Returns (slabs, nzs): `slabs` is a tuple of arrays whose leading axis
+    is sharded over the mesh, so each device holds only its own slab —
+    the slab's BrickAccel tables (coarse, fine, l2, fine_off) for
+    backend="fast", its dense occupancy for "dda" — and nzs is the slab
+    height in cells (brick-aligned for "fast")."""
+    n = mesh.devices.size
+    nx, ny, nz = scene.grid_dims
+    if nz == 0:
+        raise ValueError("Z-slab sharding needs a voxel grid scene")
+    nzs = -(-nz // n)
+    if backend == "fast":
+        nzs = -(-nzs // 8) * 8
+    # host-side split, z-padded with empty cells (never hit)
+    occ3 = np.asarray(scene.occ_flat, np.uint8).reshape(nz, ny, nx)
+    occp = np.pad(occ3, ((0, nzs * n - nz), (0, 0), (0, 0)))
+    if backend == "fast":
+        from ..ops.traverse_fast import build_accel_slab
+        accs = [build_accel_slab(occp[i * nzs:(i + 1) * nzs], i * nzs, nz,
+                                 scene.grid_origin, scene.grid_voxel_size)
+                for i in range(n)]
+        slabs = tuple(np.stack([np.asarray(getattr(a, k)) for a in accs])
+                      for k in ("coarse", "fine", "l2", "fine_off"))
+    else:
+        slabs = (occp.reshape(n, nzs * ny * nx),)
+    sharding = NamedSharding(mesh, P(mesh.axis_names[0]))
+    return tuple(jax.device_put(x, sharding) for x in slabs), nzs
+
+
 def render_zslab_sharded(scene, view_inv, proj_inv, mesh: Mesh, *,
                          width, height, light=None,
                          clear_color=(1.0, 1.0, 1.0, 1.0), shadows=True,
-                         backend="fast"):
+                         backend="fast", slabs=None):
     """Render with the OCCUPANCY GRID sharded over Z-slabs (SURVEY §5
-    "long-context analog"): each device holds only nz/n slabs of the
-    grid, every device traces ALL rays against its slab with GLOBAL
-    coordinates (ops.traverse.trace_grid_dda_zslab), and the per-slab
-    results merge with collectives — nearest hit by a pmin over slab t
-    (slab t0 is non-decreasing along a walk, so the global min IS the
-    first accepted cell of the monolithic walk; exact-t ties across
-    slabs resolve to the smaller cell id), occlusion by an OR.  Grids
-    larger than one chip's HBM therefore stay renderable — the
-    capability the reference bounds by single-GPU VRAM residency of its
-    AABB buffer (hello_vulkan.cpp:709-715).
+    "long-context analog"): each device holds only its slab of the grid
+    (shard_grid_zslab), every device traces ALL rays against its slab
+    with GLOBAL coordinates, and the per-slab results merge with
+    collectives — nearest hit by a pmin over slab t (slab t0 is
+    non-decreasing along a walk, so the global min IS the first accepted
+    cell of the monolithic walk; exact-t ties across slabs resolve to
+    the smaller cell id), occlusion by an OR.  Grids larger than one
+    device's memory therefore stay renderable — the capability the
+    reference bounds by single-GPU VRAM residency of its AABB buffer
+    (hello_vulkan.cpp:709-715).
 
     Triangle geometry (and shading) stays replicated: the injected
     trace/any-hit closures only replace the VOXEL queries, so the
     shading is byte-for-byte render_rays (pipeline.py).
 
-    backend="fast" (default, round-5): each device holds a
-    build_accel_slab of its slab — full-grid coordinates, slab-resident
-    fine table — and traces through the PRODUCTION Pallas fast path, so
-    >HBM grids render at fast-backend speed (VERDICT r4 item 3).
-    backend="dda" keeps the exhaustive all-XLA slab walk as the
-    semantic reference.
+    backend="fast" (default): each device traces its slab's BrickAccel
+    with the production brick_dda kernel.  backend="dda" keeps the
+    all-XLA slab walk (ops.traverse.trace_grid_dda_zslab) as the
+    semantic reference.  slabs: the (slabs, nzs) of an earlier
+    shard_grid_zslab call for the same scene, mesh and backend.
 
     Returns the gamma-corrected (H, W, 4) framebuffer (replicated).
     """
@@ -252,39 +270,9 @@ def render_zslab_sharded(scene, view_inv, proj_inv, mesh: Mesh, *,
 
     light = light or Light()
     axis = mesh.axis_names[0]
-    n = mesh.devices.size
     nx, ny, nz = scene.grid_dims
     vs = scene.grid_voxel_size
-    if nz == 0:
-        raise ValueError("render_zslab_sharded needs a voxel grid scene")
-    nzs = -(-nz // n)
-    if backend == "fast":
-        nzs = -(-nzs // 8) * 8  # brick-aligned slab boundaries
-
-    # host-side slab split: (nz, ny, nx) -> (n, nzs*ny*nx), z-padded with
-    # empty cells (never hit).  THE point of this path is that each
-    # device materializes only its own slab.
-    occ3 = np.asarray(scene.occ_flat, np.uint8).reshape(nz, ny, nx)
-    occp = np.pad(occ3, ((0, nzs * n - nz), (0, 0), (0, 0)))
-    occ_sh = jnp.asarray(occp.reshape(n, nzs * ny * nx))
-
-    if backend == "fast":
-        # per-slab production accels, stacked for the shard_map (host
-        # one-time scene setup; fine tables shard, coarse/l2 are tiny)
-        from ..ops.traverse_fast import BrickAccel, build_accel_slab
-        slabs = [build_accel_slab(occp[i * nzs:(i + 1) * nzs],
-                                  i * nzs, nz, scene.grid_origin, vs)
-                 for i in range(n)]
-        acc_st = (jnp.stack([s.coarse for s in slabs]),
-                  jnp.stack([s.fine for s in slabs]),
-                  jnp.stack([s.l2 for s in slabs]),
-                  jnp.stack([s.fine_off for s in slabs]))
-        acc_static = (slabs[0].dims, slabs[0].bdims,
-                      slabs[0].voxel_size, slabs[0].origin_key)
-    else:
-        acc_st = (jnp.zeros((n, 1), jnp.uint32),) * 3 \
-            + (jnp.zeros((n,), jnp.int32),)
-        acc_static = None
+    slabs, nzs = slabs or shard_grid_zslab(scene, mesh, backend)
 
     # replicated scene WITHOUT the full grid payload (the big arrays the
     # sharding exists to split); occ_flat keeps one sentinel cell so the
@@ -301,26 +289,25 @@ def render_zslab_sharded(scene, view_inv, proj_inv, mesh: Mesh, *,
 
     @functools.partial(
         jax.shard_map, mesh=mesh,
-        in_specs=(P(), P(axis), P(), P(), P(axis), P(axis), P(axis),
-                  P(axis)),
+        in_specs=(P(), P(), P()) + (P(axis),) * len(slabs),
         out_specs=P(),
         check_vma=False,
     )
-    def _render(scene_r, occ_slab, vi, pi, acc_coarse, acc_fine, acc_l2,
-                acc_off):
-        z0 = jax.lax.axis_index(axis).astype(jnp.int32) * nzs
-        occ_slab = occ_slab.reshape(-1)
+    def _render(scene_r, vi, pi, *slab):
         origins, dirs = make_camera_rays(width, height, vi, pi)
 
         if backend == "fast":
-            from ..ops.traverse_fast import (BrickAccel, any_hit_grid_fast,
+            from ..ops.traverse_fast import (BRICK, BrickAccel,
+                                             any_hit_grid_fast,
                                              trace_grid_fast)
-            dims_a, bdims_a, vs_a, ok_a = acc_static
+            coarse, fine, l2, fine_off = (x[0] for x in slab)
             accel = BrickAccel(
-                coarse=acc_coarse[0], fine=acc_fine[0], l2=acc_l2[0],
-                origin=jnp.asarray(scene_r.grid_origin), dims=dims_a,
-                bdims=bdims_a, voxel_size=vs_a, origin_key=ok_a,
-                fine_off=acc_off[0])
+                coarse=coarse, fine=fine, l2=l2, fine_off=fine_off,
+                origin=jnp.asarray(scene_r.grid_origin), dims=(nx, ny, nz),
+                bdims=tuple(-(-x // BRICK) for x in (nx, ny, nz)),
+                voxel_size=float(vs),
+                origin_key=tuple(float(c) for c in np.asarray(
+                    scene.grid_origin, np.float32)))
 
             def trace_slab(o, d, tmn, tmx):
                 return trace_grid_fast(o, d, accel, t_min=tmn, t_max=tmx)
@@ -329,6 +316,9 @@ def render_zslab_sharded(scene, view_inv, proj_inv, mesh: Mesh, *,
                 return any_hit_grid_fast(o, d, accel, t_min=tmn,
                                          t_max=tmx)
         else:
+            z0 = jax.lax.axis_index(axis).astype(jnp.int32) * nzs
+            occ_slab = slab[0].reshape(-1)
+
             def trace_slab(o, d, tmn, tmx):
                 return trace_grid_dda_zslab(
                     o, d, occ_slab, scene_r.grid_origin, z0,
@@ -370,5 +360,5 @@ def render_zslab_sharded(scene, view_inv, proj_inv, mesh: Mesh, *,
             [rgb, jnp.ones(rgb.shape[:-1] + (1,), jnp.float32)], axis=-1)
         return shading.gamma_post(rgba)
 
-    return _render(scene_rep, occ_sh, jnp.asarray(view_inv),
-                   jnp.asarray(proj_inv), *acc_st)
+    return _render(scene_rep, jnp.asarray(view_inv), jnp.asarray(proj_inv),
+                   *slabs)

@@ -31,10 +31,11 @@ __all__ = ["rasterize_image", "rasterize_scene"]
 
 def _project(view, proj, pos):
     """World -> clip -> ndc + clip w."""
-    vp = proj @ view
+    hi = jax.lax.Precision.HIGHEST
+    vp = jnp.matmul(proj, view, precision=hi)
     ph = jnp.concatenate([pos, jnp.ones(pos.shape[:-1] + (1,),
                                         jnp.float32)], axis=-1)
-    clip = jnp.einsum("ij,nj->ni", vp, ph)
+    clip = jnp.einsum("ij,nj->ni", vp, ph, precision=hi)
     w = clip[..., 3:4]
     ndc = clip[..., :3] / jnp.where(jnp.abs(w) > 1e-20, w, 1e-20)
     return ndc, w[..., 0]

@@ -3,7 +3,7 @@
 Each runner executes its config end to end and returns a result dict with
 the artifacts a judge can check (occupancy counts, image stats, timing).
 Scale parameters live in utils.config.BASELINE_CONFIGS; tests run shrunken
-variants on CPU, bench/CLI run the full ones on TPU.
+variants on CPU, bench/CLI run the full ones on the GPU.
 """
 from __future__ import annotations
 
